@@ -1,0 +1,210 @@
+"""Core layers: norms, rotary embeddings, attention, MLPs.
+
+Counterpart of the JAX package's ``models/layers.py``; same layouts (weights
+are [in, out], activations [B, S, ...]).  Per-layer parameters come in as a
+mapping of name -> tensor.  M-RoPE waits for the VLM slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import EngineConfig, ModelConfig
+from .common import matmul
+
+# --------------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
+
+
+# --------------------------------------------------------------------- rope
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables for standard RoPE.  positions: [B, S] -> [B, S, hd//2]."""
+    if positions.dim() != 2:
+        raise NotImplementedError("M-RoPE positions [3, B, S] wait for the VLM "
+                                  "slice (ROADMAP queue 1, item 8)")
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, hd]; sin/cos: [B, S, hd//2] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             *, scale: float, q_chunk: int = 1024,
+                             kv_chunk: int = 2048,
+                             logit_softcap: float = 0.0) -> torch.Tensor:
+    """Causal attention with a flash-style online softmax over kv chunks,
+    looped over q chunks; -1e30 masking as in the reference.
+
+    q: [B, H, S, d], k/v: [B, H, S, d] (self-attention).
+    """
+    b, h, s, d = q.shape
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, s)
+    if s % q_chunk or s % kv_chunk:
+        raise ValueError(f"seq {s} not divisible by chunks ({q_chunk}, {kv_chunk})")
+    rows_in = torch.arange(q_chunk, device=q.device)[:, None]
+    cols_in = torch.arange(kv_chunk, device=q.device)[None, :]
+    outs = []
+    for qi in range(s // q_chunk):
+        qf = q[:, :, qi * q_chunk:(qi + 1) * q_chunk].float() * scale
+        m_p = torch.full((b, h, q_chunk, 1), -1e30, device=q.device)
+        l_p = torch.zeros((b, h, q_chunk, 1), device=q.device)
+        acc = torch.zeros((b, h, q_chunk, d), device=q.device)
+        for kj in range(s // kv_chunk):
+            kblk = k[:, :, kj * kv_chunk:(kj + 1) * kv_chunk].float()
+            vblk = v[:, :, kj * kv_chunk:(kj + 1) * kv_chunk].float()
+            s_ij = torch.einsum("bhqd,bhkd->bhqk", qf, kblk)
+            if logit_softcap:
+                s_ij = logit_softcap * torch.tanh(s_ij / logit_softcap)
+            causal = (qi * q_chunk + rows_in) >= (kj * kv_chunk + cols_in)
+            s_ij = torch.where(causal, s_ij, torch.tensor(-1e30, device=q.device))
+            m_c = torch.maximum(m_p, s_ij.amax(dim=-1, keepdim=True))
+            p = torch.exp(s_ij - m_c)
+            alpha = torch.exp(m_p - m_c)
+            l_p = l_p * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vblk)
+            m_p = m_c
+        outs.append((acc / torch.clamp(l_p, min=1e-30)).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode-time cache: k/v [B, Hkv, S_max, hd]; length = filled prefix.
+
+    The tensors are written in place (a view into the model's stacked cache);
+    a new KVCache only carries the new length.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def gqa_expand(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, Hkv, ...] -> [B, H, ...] by repeating kv groups."""
+    hkv = x.shape[1]
+    if hkv == n_heads:
+        return x
+    return torch.repeat_interleave(x, n_heads // hkv, dim=1)
+
+
+def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig, engine: EngineConfig,
+                    sin: torch.Tensor, cos: torch.Tensor,
+                    cache: Optional[KVCache] = None
+                    ) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Pre-norm attention residual branch.
+
+    Prefill (cache None, or s > 1): chunked causal attention over x, writing
+    the cache from position 0.  Decode: x is [B, 1, D]; appends to the cache
+    and attends over the valid prefix.
+    """
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+
+    q = matmul(x, p["wq"], engine).reshape(b, s, h, hd)
+    k = matmul(x, p["wk"], engine).reshape(b, s, hkv, hd)
+    v = matmul(x, p["wv"], engine).reshape(b, s, hkv, hd)
+
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    if cfg.rope != "none":
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+
+    q = q.transpose(1, 2)      # [B, H, S, hd]
+    k = k.transpose(1, 2)      # [B, Hkv, S, hd]
+    v = v.transpose(1, 2)
+    scale = hd ** -0.5
+
+    if cache is None or s > 1:
+        if cache is not None:
+            # in-place: the prompt's k/v fill the cache from position 0
+            cache.k[:, :, :s] = k.to(cache.k.dtype)
+            cache.v[:, :, :s] = v.to(cache.v.dtype)
+            cache = KVCache(cache.k, cache.v, s)
+        out = chunked_causal_attention(q, gqa_expand(k, h), gqa_expand(v, h),
+                                       scale=scale,
+                                       q_chunk=engine.attn_q_chunk,
+                                       kv_chunk=engine.attn_kv_chunk,
+                                       logit_softcap=cfg.logit_softcap)
+    else:
+        # single-token decode; in-place append at the cache's length, then
+        # grouped-query attention without expanding the cache
+        pos = cache.length
+        cache.k[:, :, pos:pos + s] = k.to(cache.k.dtype)
+        cache.v[:, :, pos:pos + s] = v.to(cache.v.dtype)
+        ck, cv = cache.k, cache.v
+        cache = KVCache(ck, cv, pos + s)
+        group = h // hkv
+        qg = q.reshape(b, hkv, group * s, hd).float() * scale
+        logits = torch.einsum("bhqd,bhkd->bhqk", qg, ck.float())
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        smax = ck.shape[2]
+        # queries are (group-major) the s new positions repeated per group
+        qpos = pos + torch.arange(s, device=x.device).repeat(group)
+        mask = (torch.arange(smax, device=x.device)[None, None, None, :]
+                <= qpos[None, None, :, None])
+        logits = torch.where(mask, logits, torch.tensor(-1e30, device=x.device))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, cv.float()).to(x.dtype)
+        out = out.reshape(b, h, s, hd)
+
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    return matmul(out, p["wo"], engine), cache
+
+
+# ----------------------------------------------------------------------- mlp
+
+
+def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              engine: EngineConfig) -> torch.Tensor:
+    act = cfg.act
+    if act in ("swiglu", "geglu"):
+        if "w_gate_up" in p:
+            # fused gate+up: one GEMM, x read once (WL-skip analogue)
+            gu = torch.einsum("bsd,dgf->bsgf", x.float(),
+                              p["w_gate_up"].float()).to(x.dtype)
+            g, u = gu[:, :, 0], gu[:, :, 1]
+        else:
+            g = matmul(x, p["w_gate"], engine)
+            u = matmul(x, p["w_up"], engine)
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        hid = g * u
+    else:
+        u = matmul(x, p["w_up"], engine)
+        if act == "relu2":               # nemotron squared-ReLU
+            hid = torch.square(F.relu(u))
+        else:
+            hid = F.gelu(u, approximate="tanh")
+    return matmul(hid, p["w_down"], engine)

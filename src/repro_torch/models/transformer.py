@@ -1,0 +1,225 @@
+"""Decoder-only transformer backbone, dense family.
+
+Counterpart of the JAX package's ``models/transformer.py``.  The model is an
+``nn.Module`` (``DenseTransformer``) holding a ``ModuleList`` of decoder
+blocks; the layer loop is a plain Python loop (the reference scans over
+stacked [L, ...] parameters; ``convert.params_from_jax`` unstacks them).
+Parameters keep the reference's names and [in, out] layouts, and are
+inference-only (``requires_grad=False``).
+
+The moe, vlm and audio families wait for ROADMAP queue 1, item 8.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ..config import EngineConfig, ModelConfig, RunConfig
+from .common import dtype_of, embed_init, he_init, matmul
+from .layers import KVCache, attention_block, mlp_block, rms_norm, rope_angles
+
+_LATER_FAMILIES = {"moe": "ROADMAP queue 1, item 8 (MoE)",
+                   "vlm": "ROADMAP queue 1, item 8 (VLM)",
+                   "audio": "ROADMAP queue 1, item 8 (audio)",
+                   "ssm": "ROADMAP queue 1, item 9 (SSM)",
+                   "hybrid": "ROADMAP queue 1, item 9 (hybrid)"}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family in _LATER_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
+                                  f"{_LATER_FAMILIES[cfg.family]}")
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ------------------------------------------------------------------- params
+
+
+def init_layer_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                      device) -> dict[str, torch.Tensor]:
+    """One layer's parameters (the reference's names, without the [L] dim)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    init = lambda shape, fan_in: he_init(gen, shape, dtype, fan_in, device)
+    p = {
+        "norm1": zeros(d),
+        "wq": init((d, cfg.n_heads * hd), d),
+        "wk": init((d, cfg.n_kv_heads * hd), d),
+        "wv": init((d, cfg.n_kv_heads * hd), d),
+        "wo": init((cfg.n_heads * hd, d), cfg.n_heads * hd),
+        "norm2": zeros(d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = zeros(hd)
+        p["k_norm"] = zeros(hd)
+    f = cfg.d_ff
+    gated = cfg.act in ("swiglu", "geglu")
+    if gated and cfg.fuse_gate_up:
+        p["w_gate_up"] = init((d, 2, f), d)
+    else:
+        if gated:
+            p["w_gate"] = init((d, f), d)
+        p["w_up"] = init((d, f), d)
+    p["w_down"] = init((f, d), f)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device) -> dict:
+    """Random parameters from ``gen``: {"embedding", "layers": [dict per
+    layer], "final_norm", "lm_head" (untied only)}."""
+    check_family(cfg)
+    dtype = dtype_of(cfg)
+    d = cfg.d_model
+    params = {
+        "embedding": embed_init(gen, (cfg.vocab, d), dtype, device),
+        "layers": [init_layer_params(cfg, gen, dtype, device)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": torch.zeros(d, dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he_init(gen, (d, cfg.vocab), dtype, d, device)
+    return params
+
+
+# ------------------------------------------------------------------ blocks
+
+
+def decoder_block(params_l, x: torch.Tensor, cfg: ModelConfig,
+                  engine: EngineConfig, sin, cos,
+                  cache: Optional[KVCache] = None):
+    """Pre-norm block; returns (x, new_cache)."""
+    h = rms_norm(x, params_l["norm1"], cfg.rms_eps)
+    attn_out, new_cache = attention_block(params_l, h, cfg, engine, sin, cos,
+                                          cache)
+    x = x + attn_out
+    h = rms_norm(x, params_l["norm2"], cfg.rms_eps)
+    return x + mlp_block(params_l, h, cfg, engine), new_cache
+
+
+class DecoderBlock(nn.Module):
+    """One layer's parameters, under the reference's names."""
+
+    def __init__(self, params_l: dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in params_l.items():
+            self.register_parameter(name, _param(t))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
+
+    def forward(self, x, cfg, engine, sin, cos, cache=None):
+        return decoder_block(self, x, cfg, engine, sin, cos, cache)
+
+
+def run_layers(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
+               engine: EngineConfig, sin, cos,
+               caches: Optional[list[KVCache]] = None):
+    """The decoder stack as a Python loop; returns (x, new caches or None)."""
+    new_caches = []
+    for i, block in enumerate(blocks):
+        x, nc = block(x, cfg, engine, sin, cos,
+                      None if caches is None else caches[i])
+        new_caches.append(nc)
+    return x, (new_caches if caches is not None else None)
+
+
+# ---------------------------------------------------------------- embedding
+
+
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: [B, S] -> [B, S, D]."""
+    return embedding[tokens.long()]
+
+
+def positions_for(batch: int, seq: int, offset: int = 0,
+                  device=None) -> torch.Tensor:
+    pos = torch.arange(seq, device=device)[None, :] + offset
+    return pos.expand(batch, seq)
+
+
+# ------------------------------------------------------------------ serving
+
+
+class DecodeState(NamedTuple):
+    caches: list[KVCache]      # one per layer, views of one stacked buffer
+    position: int              # next position (uniform over the batch)
+
+
+class DenseTransformer(nn.Module):
+    """The dense decoder: embedding, ``ModuleList`` of blocks, final norm,
+    and an LM head (tied to the embedding when the config says so)."""
+
+    def __init__(self, cfg: RunConfig, params: dict):
+        super().__init__()
+        check_family(cfg.model)
+        self.cfg = cfg
+        self.embedding = _param(params["embedding"])
+        self.layers = nn.ModuleList(DecoderBlock(p) for p in params["layers"])
+        self.final_norm = _param(params["final_norm"])
+        if not cfg.model.tie_embeddings:
+            self.lm_head = _param(params["lm_head"])
+
+    @property
+    def model(self) -> ModelConfig:
+        return self.cfg.model
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    def logits_from(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.model
+        x = rms_norm(x, self.final_norm, m.rms_eps)
+        head = self.embedding.T if m.tie_embeddings else self.lm_head
+        return matmul(x, head, self.cfg.engine, out_dtype=torch.float32)
+
+    def _rope(self, batch: int, seq: int, offset: int):
+        m = self.model
+        pos = positions_for(batch, seq, offset, self.device)
+        return rope_angles(pos, m.resolved_head_dim, m.rope_theta)
+
+    def init_decode_state(self, batch: int, max_seq: int,
+                          dtype: torch.dtype | None = None) -> DecodeState:
+        m = self.model
+        shape = (m.n_layers, batch, m.n_kv_heads, max_seq, m.resolved_head_dim)
+        dtype = dtype or dtype_of(m)
+        k = torch.zeros(shape, dtype=dtype, device=self.device)
+        v = torch.zeros(shape, dtype=dtype, device=self.device)
+        return DecodeState([KVCache(k[i], v[i], 0) for i in range(m.n_layers)], 0)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor,
+                state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
+        """Run the prompt [B, S] through the stack, filling the caches in
+        place; returns the last position's logits [B, V] and the new state."""
+        b, s = tokens.shape
+        x = embed_tokens(self.embedding, tokens)
+        sin, cos = self._rope(b, s, 0)
+        x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
+                               sin, cos, state.caches)
+        logits = self.logits_from(x[:, -1:])
+        return logits[:, 0], DecodeState(caches, s)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor,
+                    state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
+        """One decode step: token [B] -> logits [B, V], new state."""
+        b = token.shape[0]
+        x = embed_tokens(self.embedding, token[:, None])
+        sin, cos = self._rope(b, 1, state.position)
+        x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
+                               sin, cos, state.caches)
+        logits = self.logits_from(x)
+        return logits[:, 0], DecodeState(caches, state.position + 1)

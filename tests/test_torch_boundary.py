@@ -1,0 +1,70 @@
+"""The port stands alone: nothing in src/repro_torch/ or chip_smoke.py
+imports jax or the JAX package, the port imports with jax absent, and its
+entry points refuse the card when there is none instead of falling back."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serving import ServeSession
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = {name for name in imported_modules(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "import repro_torch, repro_torch.serving, repro_torch.kernels, "
+            "repro_torch.models\n"
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_refuse_missing_card():
+    """With no CUDA device, device='cuda' (the default) raises; there is no
+    silent CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeSession(model, max_seq=16)
+    tokens = ServeSession(model, max_seq=16, device="cpu").generate(
+        torch.zeros((1, 4), dtype=torch.int32), 3)
+    assert tokens.shape == (1, 3) and tokens.dtype == torch.int32
+
+
+def test_later_families_raise_not_implemented():
+    for arch in ("granite-moe-3b-a800m", "qwen2-vl-72b", "musicgen-large",
+                 "mamba2-130m", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(get_config(arch, smoke=True), device="cpu")
