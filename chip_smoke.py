@@ -5,18 +5,40 @@
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card: name and power limit;
-  2. the build of every CUDA source under src/repro_torch/kernels/csrc/;
-  3. every kernel against its plain PyTorch version, on the card, at the
-     GEMM shapes of qwen3-1.7b (M in {4, 512}) and at ragged shapes, bf16 and
-     f32, with and without C: rel_err < 1e-5, schedules bit-identical;
-  4. kernel times at the main-path shapes against their bound, the plain
-     version and torch.matmul (the yardstick the port never calls);
-  5. serving: qwen3-1.7b at full width, random weights from a seeded
+  2. the build of every CUDA source under src/repro_torch/kernels/csrc/,
+     one nvcc per source, all at once;
+  3. every kernel against its plain PyTorch version, on the card:
+     the RASA GEMM at the GEMM shapes of qwen3-1.7b, mamba2-130m and
+     zamba2-2.7b (tied heads through embedding.T) and at ragged shapes, bf16
+     and f32, with and without C: rel_err < 1e-5, schedules bit-identical;
+     flash attention through flash_mha at the head layouts of qwen3-1.7b,
+     zamba2-2.7b and gemma-2b, S in {128, 257, 4096}, batch 4: rel_err
+     < 2e-2 in bf16, < 1e-5 in f32; the SSD scan at the head layouts of
+     mamba2-130m and zamba2-2.7b, S in {512, 1024}, chunk 256, batch 4:
+     rtol = atol = 2e-5 in f32, rel_err < 3e-2 in bf16;
+  4. kernel times against their bound, the plain version and the one
+     PyTorch call that computes the same function (torch.matmul, and
+     scaled_dot_product_attention for flash; none exists for the SSD),
+     which the port never calls.  Bound: the larger of the bytes over the
+     HBM rate and the operations over the card's peak for the inputs' type
+     (bf16 tensor cores, or fp32 outside them).  Times are device time from
+     torch.profiler; the "timer" of each row says where CUDA-event time
+     stood in for it;
+  5. serving qwen3-1.7b at full width, random weights from a seeded
      torch.Generator, ServeSession.generate (batch 4, prompt 128, 32 steps)
-     under the pallas_rasa engine (wls, wlbp, base) and the xla engine.
-The line before the last is the kernels' JSON summary and the card line;
-the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the repository beside it, it exits non-zero and prints no result.
+     under the pallas_rasa engine (wls, wlbp, base) and the xla engine;
+  6. the flash path: flash_mha on the q/k/v of every layer of a qwen3-1.7b
+     prefill (batch 4, prompt 512), against the model's own attention;
+  7. serving mamba2-130m and zamba2-2.7b at full width (batch 4, prompt
+     512, 32 steps) under pallas_rasa (wls) and xla, and the SSD path:
+     ssd_chunk_fused on the SSD inputs of every mamba2-130m layer of a
+     prefill, against ssd_chunked in f32; then the SSD kernel's time on one
+     real layer's inputs, on random ones and on mixes of the two, with the
+     SM clock and board power sampled while it runs.
+The line before the last is the card line, the one before it the kernels'
+JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
+CUDA device, or without the repository beside it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -29,17 +51,35 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-F32_SIMT_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+# H100 SXM dense peak for inputs of each type: bf16 on the tensor cores,
+# fp32 outside them (the data sheet's rate for the type, whatever the
+# kernel itself uses)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TRACE_PAIRS = 6                # profiler attempts per timed function
 REL_TOL = 1e-5                 # the reference's GEMM tolerance
-SERVE_TOL = 2e-2               # the reference's pallas-vs-xla tolerance
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # tests/test_kernels.py:112,121
+SSD_TOL = {"bfloat16": 3e-2, "float32": 2e-5}     # tests/test_ssd_kernel.py:55,37
+SERVE_TOL = 2e-2               # kernel vs xla engine, f32 weights
 BF16_TOL = 0.15                # the reference's bf16 logits tolerance
 BATCH, PROMPT, STEPS = 4, 128, 32
-SOURCE = "src/repro_torch/kernels/csrc/rasa_gemm.cu"
+SSM_PROMPT = 512               # two SSD chunks: the inter-chunk recurrence runs
+FLASH_SEQS = (128, 257, 4096)
+SSD_SEQS = (512, 1024)
+SSD_CHUNK = 256
+FLASH_ARCHS = ("qwen3-1.7b", "zamba2-2.7b", "gemma-2b")
+SSD_ARCHS = ("mamba2-130m", "zamba2-2.7b")
+SOURCES = {"gemm": "src/repro_torch/kernels/csrc/rasa_gemm.cu",
+           "flash": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
 REPLACES = {"base": "src/repro/kernels/rasa_gemm.py:103 (_ws_call, schedule=base)",
             "wlbp": "src/repro/kernels/rasa_gemm.py:103 (_ws_call, schedule=wlbp)",
-            "wls": "src/repro/kernels/rasa_gemm.py:140 (rasa_gemm, schedule=wls)"}
+            "wls": "src/repro/kernels/rasa_gemm.py:140 (rasa_gemm, schedule=wls)",
+            "flash": "src/repro/kernels/flash_attention.py:69 (flash_attention, "
+                     "via ops.flash_mha)",
+            "ssd": "src/repro/kernels/ssd_chunk.py:77 (ssd_chunk_fused)"}
 
 
 def card_line() -> str:
@@ -53,13 +93,19 @@ def rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-6)).item()
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float, float]:
-    """(device, wall) ms of one fn() call: the CUDA kernels' own time summed
-    from a torch.profiler trace, and CUDA-event time including launch gaps;
-    means over reps runs after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+def allclose_ratio(got, want, tol: float) -> float:
+    """max |got - want| / (tol + tol |want|): <= 1 is assert_allclose with
+    rtol = atol = tol."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+def dtype_name(t) -> str:
+    return str(t.dtype)[6:]
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """CUDA-event ms of one fn() call, launch gaps included, over reps."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -67,49 +113,110 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float]:
         fn()
     end.record()
     torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if dev_us <= 0:
-        raise RuntimeError("the profiler trace shows no device time")
-    return dev_us / reps / 1e3, wall
+    return start.elapsed_time(end) / reps
+
+
+def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
+    """One torch.profiler trace of reps fn() calls: the device records per
+    kernel name, and their summed device time in us.  A warm-up step of
+    reps calls runs under the tracer first and is thrown away: on an H100,
+    traces without one lost the first kernel records of their calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return {e.key: e.count for e in evs}, sum(e.self_device_time_total for e in evs)
+
+
+def device_ms(torch, fn, reps: int) -> tuple[float, float, str]:
+    """(time, wall, timer) in ms of one fn() call, after a warm-up.  time is
+    the CUDA kernels' own time summed from torch.profiler traces of reps and
+    2 reps calls (timer "profiler"); wall is CUDA-event time over reps
+    calls, launch gaps included.  The profiler can drop kernel records (on
+    an H100 it did, even after a warm-up step), so a pair of traces
+    counts only when every kernel's records are a multiple of reps and the
+    longer trace holds exactly twice the shorter one's.  After TRACE_PAIRS
+    pairs that do not, time is the event time, an upper bound, and timer
+    says "events"."""
+    fn()
+    torch.cuda.synchronize()
+    wall = event_ms(torch, fn, reps)
+    for _ in range(TRACE_PAIRS):
+        once, t1 = kernel_trace(torch, fn, reps)
+        twice, t2 = kernel_trace(torch, fn, 2 * reps)
+        if (once and twice == {k: 2 * v for k, v in once.items()}
+                and all(v % reps == 0 for v in once.values())):
+            return (t1 + t2) / (3 * reps) / 1e3, wall, "profiler"
+        print(f"time: kernel records do not add up over {reps} and {2 * reps} calls "
+              f"({sum(once.values())}, {sum(twice.values())}); tracing again")
+    print(f"time: no trace held every kernel record; CUDA-event time {wall:.6g} ms "
+          "stands for the device time (timer: events)")
+    return wall, wall, "events"
+
+
+# --------------------------------------------------------------------- GEMM
 
 
 def layer_shapes(m) -> list[tuple[int, int, int]]:
-    """(K, N, count per layer) of one decoder layer's GEMMs."""
+    """(K, N, count per forward) of one model's GEMMs, without the head:
+    each decoder layer's for the dense family; each Mamba2 layer's and each
+    application of the hybrid's shared attention + MLP block for ssm/hybrid."""
     d, hd, f = m.d_model, m.resolved_head_dim, m.d_ff
-    return [(d, m.n_heads * hd, 1), (d, m.n_kv_heads * hd, 2),
-            (m.n_heads * hd, d, 1), (d, f, 2), (f, d, 1)]
+    attn_mlp = [(d, m.n_heads * hd, 1), (d, m.n_kv_heads * hd, 2),
+                (m.n_heads * hd, d, 1), (d, f, 2), (f, d, 1)]
+    if m.family == "dense":
+        return [(k, n, c * m.n_layers) for k, n, c in attn_mlp]
+    s = m.ssm
+    d_inner = s.expand * d
+    proj = 2 * d_inner + 2 * s.n_groups * s.d_state + d_inner // s.head_dim
+    shapes = [(d, proj, m.n_layers), (d_inner, d, m.n_layers)]
+    apps = m.n_layers // m.hybrid.attn_every if m.family == "hybrid" else 0
+    return shapes + [(k, n, c * apps) for k, n, c in attn_mlp if apps]
 
 
-def check_kernels(torch, rk, cfg) -> dict[str, float]:
-    """Phase 3: every schedule against the plain version; returns the max
-    abs error per schedule."""
-    m = cfg.model
-    main = rk.GemmBlocks(cfg.engine.block_m, cfg.engine.block_k, cfg.engine.block_n)
+def gemm_launches_per_forward(m, bk: int) -> dict[str, int]:
+    """RASA launches of one forward (prefill or decode step) per schedule:
+    one per GEMM for wls, one per k-chunk of bk for base/wlbp; head included."""
+    chunks = lambda k: -(-k // bk)
+    shapes = layer_shapes(m) + [(m.d_model, m.vocab, 1)]
+    per_chunk = sum(c * chunks(k) for k, _, c in shapes)
+    return {"wls": sum(c for _, _, c in shapes), "base": per_chunk, "wlbp": per_chunk}
+
+
+def check_gemm(torch, rk, configs) -> dict[str, float]:
+    """Phase 3, GEMM: every schedule against the plain version; returns the
+    max abs error per schedule.  Each model's distinct (K, N) at M = batch
+    (decode) and M = batch * prompt (prefill), its tied head at M = batch
+    and 512, and ragged shapes."""
+    main = rk.GemmBlocks(configs[0].engine.block_m, configs[0].engine.block_k,
+                         configs[0].engine.block_n)
     small = rk.GemmBlocks(128, 128, 128)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    rnd = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
-    cases = [(mm, k, n, False, main) for k, n, _ in layer_shapes(m)
-             for mm in (4, 512)]
-    cases += [(mm, m.d_model, m.vocab, True, main) for mm in (4, 512)]
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, device=DEV, generator=gen)
+    cases, seen = [], set()
+    for cfg in configs:
+        m = cfg.model
+        prefill_m = BATCH * (PROMPT if m.family == "dense" else SSM_PROMPT)
+        for k, n, _ in layer_shapes(m):
+            for mm in (BATCH, prefill_m):
+                if (mm, k, n) not in seen:
+                    seen.add((mm, k, n))
+                    cases.append((mm, k, n, False, main))
+        cases += [(mm, m.d_model, m.vocab, True, main) for mm in (BATCH, 512)]
     cases += [(1, 256, 256, False, small), (257, 130, 100, False, small),
               (130, 260, 140, False, small), (3, 130, 100, False, small),
               (4, 260, 140, True, small)]
     worst = {s: 0.0 for s in rk.SCHEDULES}
-    emb = {}
     for mm, k, n, transposed, blocks in cases:
         for dtype in (torch.bfloat16, torch.float32):
             a = rnd(mm, k).to(dtype)
-            if transposed:        # the tied head: embedding.T, read in place
-                if (dtype, n, k) not in emb:
-                    emb[(dtype, n, k)] = rnd(n, k).to(dtype)
-                b = emb[(dtype, n, k)].T
-            else:
-                b = rnd(k, n).to(dtype)
+            # the tied head reads embedding.T in place
+            b = rnd(n, k).to(dtype).T if transposed else rnd(k, n).to(dtype)
             for c in (None, rnd(mm, n)):
                 want = rk.rasa_gemm_plain(a, b, c, blocks=blocks)
                 outs = {s: rk.rasa_gemm(a, b, c, schedule=s, blocks=blocks)
@@ -123,58 +230,61 @@ def check_kernels(torch, rk, cfg) -> dict[str, float]:
                                              f"rel_err {err:.3g} >= {REL_TOL}")
                     if not torch.equal(got, outs["wls"]):
                         raise AssertionError(f"{s} differs from wls at ({mm},{k},{n}) {dtype}")
-            print(f"check ({mm},{k},{n}){' B=embedding.T' if transposed else ''} "
-                  f"{str(dtype)[6:]}: rel_err < {REL_TOL}, schedules bit-identical")
-    del emb
+            del a, b
+        print(f"check gemm ({mm},{k},{n}){' B=embedding.T' if transposed else ''}: "
+              f"rel_err < {REL_TOL} in bf16 and f32, schedules bit-identical")
     return worst
 
 
-def gemm_bound_ms(mm: int, k: int, n: int, in_bytes: int = 2) -> tuple[float, float]:
-    """(bytes, operations) times for C = A @ B: inputs read once, the f32
-    output written once, over the HBM rate; 2MKN fp32 operations (the
-    kernels' arithmetic) over the SIMT peak.  The bound is the larger."""
+def gemm_bound_ms(mm: int, k: int, n: int, dtype: str = "bfloat16") -> tuple[float, float]:
+    """(bytes, operations) times for C = A @ B with A, B of ``dtype``: inputs
+    read once, the f32 output written once, over the HBM rate; 2MKN
+    operations over the card's peak for that type.  The bound is the larger."""
+    in_bytes = 2 if dtype == "bfloat16" else 4
     byte_ms = (mm * k * in_bytes + k * n * in_bytes + mm * n * 4) / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * mm * k * n / F32_SIMT_FLOPS * 1e3
+    op_ms = 2 * mm * k * n / PEAK_FLOPS[dtype] * 1e3
     return byte_ms, op_ms
 
 
-def time_kernels(torch, rk, cfg) -> tuple[dict, dict]:
-    """Phase 4: per-GEMM times at the main-path shapes, with weights that
-    are cold in L2 as in a real step (a distinct weight per layer), summed
-    over one decode step (M = batch) and one prefill (M = batch * prompt).
-    Device time (kernels only, from the profiler) and wall time (CUDA
-    events, launch gaps included) for each."""
+def time_gemm(torch, rk, cfg) -> tuple[dict, dict]:
+    """Phase 4, GEMM: per-GEMM times at the main-path shapes, with weights
+    that are cold in L2 as in a real step (a distinct weight per layer),
+    summed over one decode step (M = batch) and one prefill (M = batch *
+    prompt).  Device time (kernels only, from the profiler) and wall time
+    (CUDA events, launch gaps included) for each; returns the sums and,
+    per timed function, the timer behind its device time ("profiler",
+    "events", or both joined by "+")."""
     m = cfg.model
     blocks = rk.GemmBlocks(cfg.engine.block_m, cfg.engine.block_k, cfg.engine.block_n)
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device=DEV).manual_seed(2)
     bf16 = torch.bfloat16
-    shapes = [(k, n, c * m.n_layers, False) for k, n, c in layer_shapes(m)]
+    shapes = [(k, n, count, False) for k, n, count in layer_shapes(m)]
     shapes.append((m.d_model, m.vocab, 1, True))
     timed = (*rk.SCHEDULES, "plain", "library")
     step = {name: {"decode": 0.0, "prefill": 0.0}
             for name in (*timed, *(f"{t}_wall" for t in timed), "bytes", "operations")}
+    timers = {name: set() for name in timed}
     rows = []
     for k, n, count, transposed in shapes:
         if transposed:
-            ws = [torch.randn(n, k, device="cuda", generator=gen).to(bf16).T]
+            ws = [torch.randn(n, k, device=DEV, generator=gen).to(bf16).T]
         else:
-            ws = [torch.randn(k, n, device="cuda", generator=gen).to(bf16)
+            ws = [torch.randn(k, n, device=DEV, generator=gen).to(bf16)
                   for _ in range(m.n_layers)]
         for phase, mm in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
             if transposed:
                 mm = BATCH          # the head sees only the last position
-            a = torch.randn(mm, k, device="cuda", generator=gen).to(bf16)
-            def run(f):
-                dev, wall = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
-                return dev / len(ws), wall / len(ws)
+            a = torch.randn(mm, k, device=DEV, generator=gen).to(bf16)
             t, wall = {}, {}
-            for s in rk.SCHEDULES:
-                t[s], wall[s] = run(lambda x, w, s=s: rk.rasa_gemm(
-                    x, w, schedule=s, blocks=blocks))
-            t["plain"], wall["plain"] = run(
-                lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks))
-            t["library"], wall["library"] = run(torch.matmul)
-            t["bytes"], t["operations"] = gemm_bound_ms(mm, k, n)
+            fns = {**{s: lambda x, w, s=s: rk.rasa_gemm(x, w, schedule=s, blocks=blocks)
+                      for s in rk.SCHEDULES},
+                   "plain": lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks),
+                   "library": torch.matmul}
+            for name, f in fns.items():
+                dev, w_ms, timer = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+                t[name], wall[name] = dev / len(ws), w_ms / len(ws)
+                timers[name].add(timer)
+            t["bytes"], t["operations"] = gemm_bound_ms(mm, k, n, "bfloat16")
             for name, v in t.items():
                 step[name][phase] += count * v
             for name, v in wall.items():
@@ -182,49 +292,414 @@ def time_kernels(torch, rk, cfg) -> tuple[dict, dict]:
             rows.append({"phase": phase, "M": mm, "K": k, "N": n, "per_step": count,
                          **{f"{kk}_ms": v for kk, v in t.items()},
                          **{f"{kk}_wall_ms": v for kk, v in wall.items()}})
-            print("time " + json.dumps(rows[-1]))
+            print("time gemm " + json.dumps(rows[-1]))
         del ws
-    return step, rows
+    return step, {name: "+".join(sorted(ts)) for name, ts in timers.items()}
 
 
-def serve(torch, cfg) -> dict:
-    """Phase 5: qwen3-1.7b FULL through ServeSession under four engines."""
-    from repro_torch.config import EngineConfig
-    from repro_torch.kernels import rasa_gemm as rk
-    from repro_torch.models import build_model
-    from repro_torch.serving import ServeSession
+# -------------------------------------------------------------------- flash
 
+
+def flash_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, causal: bool,
+                   dtype: str) -> tuple[float, float]:
+    """(bytes, operations) times of attention on q/k/v of ``dtype``: q, k, v
+    read once and the output written once over the HBM rate; 4 d operations
+    per (row, visible key) pair, the pairs this run's mask lets through,
+    over the card's peak for that type."""
+    in_bytes = 2 if dtype == "bfloat16" else 4
+    byte_ms = (2 * bh * sq + 2 * bhkv * skv) * d * in_bytes / HBM_BYTES_PER_S * 1e3
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return byte_ms, 4 * d * pairs * bh / PEAK_FLOPS[dtype] * 1e3
+
+
+def bound_fields(byte_ms: float, op_ms: float) -> dict:
+    return {"bytes_ms": byte_ms, "operations_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def flash_layouts():
+    """(arch, q heads, kv heads, head dim) of the flash check."""
+    from repro_torch.configs import get_config
+    return [(a, m.n_heads, m.n_kv_heads, m.resolved_head_dim)
+            for a, m in ((a, get_config(a).model) for a in FLASH_ARCHS)]
+
+
+def flash_inputs(torch, gen, hq, hkv, s, d, dtype):
+    rnd = lambda h: torch.randn(BATCH, h, s, d, device=DEV, generator=gen).to(dtype)
+    return rnd(hq), rnd(hkv), rnd(hkv)
+
+
+def flash_plain(fa, q, k, v, **kw):
+    """flash_attention_plain on [B, H, S, D] inputs, as flash_mha calls it."""
+    from repro_torch.kernels.ops import flash_block
+    b, hq, s, d = q.shape
+    out = fa.flash_attention_plain(
+        q.reshape(b * hq, s, d), k.reshape(-1, k.shape[2], d), v.reshape(-1, v.shape[2], d),
+        block_q=flash_block(512, s), block_kv=flash_block(512, k.shape[2]), **kw)
+    return out.reshape(b, hq, s, d)
+
+
+def check_flash(torch, fa, flash_mha) -> float:
+    """Phase 3, flash: the kernel through flash_mha against its plain
+    version; returns the max abs error."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    worst = 0.0
+    for arch, hq, hkv, d in flash_layouts():
+        for s in FLASH_SEQS:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, dtype)
+                got = flash_mha(q, k, v)
+                torch.cuda.synchronize()
+                want = flash_plain(fa, q, k, v)
+                err = rel_err(got, want)
+                tol = FLASH_TOL[str(dtype)[6:]]
+                worst = max(worst, (got.float() - want.float()).abs().max().item())
+                print(f"check flash {arch} ({BATCH},{hq}/{hkv},{s},{d}) {str(dtype)[6:]}: "
+                      f"rel_err {err:.3g} (< {tol})")
+                if not err < tol:
+                    raise AssertionError(f"flash {arch} S={s} {dtype}: rel_err {err} >= {tol}")
+                del q, k, v, got, want
+    return worst
+
+
+def time_flash(torch, fa, flash_mha) -> list[dict]:
+    """Phase 4, flash: bf16 at every layout and S of the check."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    rows = []
+    for arch, hq, hkv, d in flash_layouts():
+        for s in FLASH_SEQS:
+            q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, torch.bfloat16)
+            rows.append(flash_row(torch, fa, flash_mha, F, arch, q, k, v))
+            print("time flash " + json.dumps(rows[-1]))
+            del q, k, v
+    return rows
+
+
+def timed_fields(torch, fns: dict) -> dict:
+    """{"ms": ..., "plain_ms": ..., ...} device times of each fn, keyed as
+    in the kernels line, and "timer": the timer behind each."""
+    out, timer = {}, {}
+    for key, fn in fns.items():
+        out[key], _, timer[key] = device_ms(torch, fn, 3)
+    return {**out, "timer": timer}
+
+
+def flash_row(torch, fa, flash_mha, F, what, q, k, v) -> dict:
+    """Kernel, plain and SDPA times (device, profiler) of one causal call."""
+    b, hq, s, d = q.shape
+    t = timed_fields(torch, {
+        "ms": lambda: flash_mha(q, k, v),
+        "plain_ms": lambda: flash_plain(fa, q, k, v),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=k.shape[1] != hq)})
+    return {"what": what, "B": b, "Hq": hq, "Hkv": k.shape[1], "S": s, "D": d,
+            "dtype": dtype_name(q), **t,
+            **bound_fields(*flash_bound_ms(b * hq, b * k.shape[1], s, s, d, True,
+                                           dtype_name(q)))}
+
+
+def capture(module, name: str, run):
+    """Call run() with ``module.name`` wrapped so that every call's
+    arguments and result are recorded; returns the records."""
+    orig = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        seen.append((args, kw, out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return seen
+
+
+def flash_path(torch, fa, flash_mha, cfg) -> dict:
+    """Phase 6: the q/k/v of every attention layer of a qwen3-1.7b prefill
+    (batch 4, prompt 512) through flash_mha, counts from 0 just before and
+    read just after, each output against the model's own attention
+    (chunked_causal_attention) on the same tensors; then one layer's times."""
+    import torch.nn.functional as F
+    from repro_torch.models import build_model, layers
     m = cfg.model
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda", seed=0)
+    model = build_model(cfg, device=DEV, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    prompts = torch.randint(0, m.vocab, (BATCH, SSM_PROMPT), device=DEV, generator=gen)
+    seen = capture(layers, "chunked_causal_attention", lambda: model.prefill(
+        prompts, model.init_decode_state(BATCH, SSM_PROMPT)))
+    del model
+    group = m.n_heads // m.n_kv_heads
+    # kv heads as the model projects them (gqa_expand repeated each one)
+    calls = [(q, k[:, ::group].contiguous(), v[:, ::group].contiguous(), kw["scale"], out)
+             for (q, k, v), kw, out in seen]
+    fa.reset_launches()
+    outs = [flash_mha(q, k, v, scale=scale) for q, k, v, scale, _ in calls]
     torch.cuda.synchronize()
-    print(f"serve: built {m.name} ({m.n_layers} layers, d={m.d_model}, "
-          f"vocab={m.vocab}) in {time.perf_counter() - t0:.3f} s")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    prompts = torch.randint(0, m.vocab, (BATCH, PROMPT), device="cuda",
-                            generator=gen, dtype=torch.int32)
-    max_seq = PROMPT + STEPS
-    per_layer = sum(c for _, _, c in layer_shapes(m))              # 7 GEMMs
-    chunks = lambda k: -(-k // cfg.engine.block_k)
-    chunk_launches = (m.n_layers * sum(c * chunks(k) for k, _, c in layer_shapes(m))
-                      + chunks(m.d_model))
-    per_forward = {"wls": m.n_layers * per_layer + 1,
-                   "base": chunk_launches, "wlbp": chunk_launches}
+    launches = fa.launches["flash"]
+    if launches != m.n_layers:
+        raise AssertionError(f"flash path launched {launches}, expected {m.n_layers}")
+    errs = [rel_err(got, want) for got, (*_, want) in zip(outs, calls)]
+    print(f"flash path: {launches} launches over {m.n_layers} qwen3-1.7b prefill layers "
+          f"({BATCH},{m.n_heads}/{m.n_kv_heads},{SSM_PROMPT},{m.resolved_head_dim}) bf16; "
+          f"rel_err vs chunked_causal_attention max {max(errs):.3g} (< {FLASH_TOL['bfloat16']})")
+    if not max(errs) < FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash path: rel_err {max(errs)} >= {FLASH_TOL['bfloat16']}")
+    q, k, v, _, _ = calls[0]
+    row = flash_row(torch, fa, flash_mha, F, "qwen3-1.7b prefill layer", q, k, v)
+    row["max_abs_err"] = max((o.float() - c[-1].float()).abs().max().item()
+                             for o, c in zip(outs, calls))
+    print("time flash " + json.dumps(row))
+    return {"launches": launches, **row}
+
+
+# ---------------------------------------------------------------------- SSD
+
+
+def ssd_ops(bh: int, s: int, p: int, n: int, chunk: int) -> int:
+    """fp32 operations of the SSD scan: per chunk, q(q+1)/2 (row, column)
+    pairs of 2N (C.B) + 2P (W x) operations, and 2qNP each for the
+    inter-chunk term and the state update."""
+    q = chunk
+    return bh * (s // q) * (q * (q + 1) // 2 * 2 * (n + p) + 4 * q * n * p)
+
+
+def ssd_layouts():
+    """(arch, heads, head dim P, state N) of the SSD check."""
+    from repro_torch.configs import get_config
+    out = []
+    for a in SSD_ARCHS:
+        m = get_config(a).model
+        out.append((a, m.ssm.expand * m.d_model // m.ssm.head_dim, m.ssm.head_dim,
+                    m.ssm.d_state))
+    return out
+
+
+def ssd_inputs(torch, gen, bh, s, p, n, dtype):
+    x = torch.randn(bh, s, p, device=DEV, generator=gen).to(dtype)
+    dt = torch.rand(bh, s, device=DEV, generator=gen) * 0.19 + 0.01
+    a = -(torch.rand(bh, device=DEV, generator=gen) * 1.5 + 0.5)
+    b = torch.randn(bh, s, n, device=DEV, generator=gen).to(dtype)
+    c = torch.randn(bh, s, n, device=DEV, generator=gen).to(dtype)
+    return x, dt, a, b, c
+
+
+def check_ssd_result(torch, got, want, dtype: str, what: str) -> float:
+    """Raise unless (y, state) agree at SSD_TOL; returns the max abs error."""
+    tol = SSD_TOL[dtype]
+    if dtype == "float32":
+        ratio = max(allclose_ratio(g, w, tol) for g, w in zip(got, want))
+        print(f"check ssd {what}: max |diff| / (tol + tol |want|) {ratio:.3g} (<= 1, "
+              f"tol {tol})")
+        if not ratio <= 1:
+            raise AssertionError(f"ssd {what}: outside rtol = atol = {tol} ({ratio:.3g})")
+    else:
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        print(f"check ssd {what}: rel_err {err:.3g} (< {tol})")
+        if not err < tol:
+            raise AssertionError(f"ssd {what}: rel_err {err} >= {tol}")
+    return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+
+def check_ssd(torch, sc) -> float:
+    """Phase 3, SSD: the kernel through ssd_chunk_fused against its plain
+    version; returns the max abs error."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    worst = 0.0
+    for arch, h, p, n in ssd_layouts():
+        for s in SSD_SEQS:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = ssd_inputs(torch, gen, BATCH * h, s, p, n, dtype)
+                got = sc.ssd_chunk_fused(*args, chunk=SSD_CHUNK)
+                torch.cuda.synchronize()
+                want = sc.ssd_chunk_plain(*args, chunk=SSD_CHUNK)
+                worst = max(worst, check_ssd_result(
+                    torch, got, want, str(dtype)[6:],
+                    f"{arch} ({BATCH * h},{s},{p},{n}) {str(dtype)[6:]}"))
+    return worst
+
+
+def ssd_row(torch, sc, what, x, dt, a, b, c) -> dict:
+    """Kernel and plain times (device, profiler) of one call, and the bound:
+    the bytes of ``hbm_bytes_fused`` and the operations over the card's peak
+    for x's type."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    t = timed_fields(torch, {
+        "ms": lambda: sc.ssd_chunk_fused(x, dt, a, b, c, chunk=SSD_CHUNK),
+        "plain_ms": lambda: sc.ssd_chunk_plain(x, dt, a, b, c, chunk=SSD_CHUNK)})
+    byte_ms = sc.hbm_bytes_fused(bh, s, p, n, x.element_size()) / HBM_BYTES_PER_S * 1e3
+    op_ms = ssd_ops(bh, s, p, n, SSD_CHUNK) / PEAK_FLOPS[dtype_name(x)] * 1e3
+    return {"what": what, "BH": bh, "S": s, "P": p, "N": n, "chunk": SSD_CHUNK,
+            "dtype": dtype_name(x), **t, "library_ms": None,
+            **bound_fields(byte_ms, op_ms)}
+
+
+def clock_under_load(torch, fn, ms_per_call: float) -> dict:
+    """Time fn() with CUDA events over about a second of back-to-back calls
+    while nvidia-smi samples the SM clock (MHz) and board power (W) every
+    100 ms; returns the event ms per call and the median samples."""
+    reps = max(50, int(1000 / max(ms_per_call, 1e-3)))
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.3)                     # nvidia-smi's own start-up
+        ms = event_ms(torch, fn, reps)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = [[float(v) for v in line.split(",")] for line in out.splitlines()
+               if line.strip() and "N/A" not in line]
+    samples = samples[3:] or samples        # skip the reads before the calls began
+    med = lambda i: sorted(s[i] for s in samples)[len(samples) // 2] if samples else None
+    return {"event_ms": ms, "reps": reps, "sm_clock_mhz": med(0), "power_w": med(1),
+            "samples": len(samples)}
+
+
+def weight_shares(torch, dt, a, chunk: int) -> dict:
+    """Shares of the intra-chunk weights exp(seg_i - seg_j), i >= j, that are
+    0, subnormal (below 2^-126) and normal in f32."""
+    bh, s = dt.shape
+    seg = torch.cumsum((dt.float() * a[:, None]).reshape(bh, s // chunk, chunk).double(),
+                       dim=-1).float()
+    w = torch.exp(seg[..., :, None] - seg[..., None, :])
+    lower = torch.ones(chunk, chunk, dtype=torch.bool, device=dt.device).tril()
+    w = w[..., lower]
+    tiny = torch.finfo(torch.float32).tiny
+    zero, sub = (w == 0).float().mean().item(), ((w > 0) & (w < tiny)).float().mean().item()
+    return {"zero": zero, "subnormal": sub, "normal": 1 - zero - sub}
+
+
+def ssd_input_study(torch, sc, real) -> dict:
+    """The SSD kernel at one real layer's shape on the real inputs, on random
+    ones as phase 4 makes them, and on mixes of the two: device time
+    (profiler), CUDA-event time over a second of calls with the SM clock
+    and board power sampled meanwhile, and the share of zero and subnormal
+    intra-chunk weights.  Returns the rows by name."""
+    x, dt, a, b, c = real
+    bh, s, p = x.shape
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    rx, rdt, ra, rb, rc = ssd_inputs(torch, gen, bh, s, p, b.shape[-1], torch.float32)
+    variants = {"real": (x, dt, a, b, c),
+                "random": (rx, rdt, ra, rb, rc),
+                "random x/b/c, real dt/a": (rx, dt, a, rb, rc),
+                "real x/b/c, random dt/a": (x, rdt, ra, b, c),
+                "random, dt / 100 (no weight underflows)": (rx, rdt / 100, ra, rb, rc),
+                "zero x/b/c, real dt/a": (torch.zeros_like(x), dt, a, torch.zeros_like(b),
+                                          torch.zeros_like(c))}
+    rows = {}
+    for name, args in variants.items():
+        fn = lambda: sc.ssd_chunk_fused(*args, chunk=SSD_CHUNK)
+        dev, _, timer = device_ms(torch, fn, 3)
+        rows[name] = {"ms": dev, "timer": timer, **clock_under_load(torch, fn, dev),
+                      "weights": weight_shares(torch, args[1], args[2], SSD_CHUNK)}
+        print(f"time ssd inputs {name}: " + json.dumps(rows[name]))
+    return rows
+
+
+def time_ssd(torch, sc) -> list[dict]:
+    """Phase 4, SSD: bf16 and f32 at every layout and S of the check.  No
+    single PyTorch call computes the scan, so there is no library time."""
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    rows = []
+    for arch, h, p, n in ssd_layouts():
+        for s in SSD_SEQS:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = ssd_inputs(torch, gen, BATCH * h, s, p, n, dtype)
+                rows.append(ssd_row(torch, sc, arch, *args))
+                print("time ssd " + json.dumps(rows[-1]))
+    return rows
+
+
+def ssd_path(torch, sc, model, prompts) -> dict:
+    """Phase 7, the SSD path: the SSD inputs of every Mamba2 layer of a
+    mamba2-130m prefill, flattened to [BH, S, .] in f32, through
+    ssd_chunk_fused (counts from 0 just before, read just after), each
+    against ssd_chunked in f32 on the CPU with the heads as independent
+    rows, as the reference's oracle runs it (tests/test_ssd_kernel.py:12-21)."""
+    from repro_torch.models import ssm
+    m = model.model
+    seen = capture(ssm, "ssd_chunked", lambda: model.prefill(
+        prompts, model.init_decode_state(BATCH, prompts.shape[1])))
+    calls = []
+    for (x, dt, A, B, C, chunk, *_), _, _ in seen:
+        b, s, h, p = x.shape
+        rep = h // B.shape[2]
+        heads = lambda t: torch.repeat_interleave(t, rep, dim=2).transpose(1, 2)
+        calls.append((x.transpose(1, 2).reshape(b * h, s, p).float().contiguous(),
+                      dt.transpose(1, 2).reshape(b * h, s).float().contiguous(),
+                      A.float().repeat(b).contiguous(),
+                      heads(B).reshape(b * h, s, -1).float().contiguous(),
+                      heads(C).reshape(b * h, s, -1).float().contiguous(), chunk))
+    if len(calls) != m.n_layers or calls[0][-1] != SSD_CHUNK:
+        raise AssertionError(f"captured {len(calls)} SSD calls (chunk "
+                             f"{calls[0][-1] if calls else None}), expected {m.n_layers}")
+    sc.reset_launches()
+    outs = [sc.ssd_chunk_fused(x, dt, a, b, c, chunk=chunk)
+            for x, dt, a, b, c, chunk in calls]
+    torch.cuda.synchronize()
+    launches = sc.launches["ssd"]
+    if launches != m.n_layers:
+        raise AssertionError(f"ssd path launched {launches}, expected {m.n_layers}")
+    worst = 0.0
+    for i, ((x, dt, a, b, c, chunk), got) in enumerate(zip(calls, outs)):
+        # one batch row, the BH rows as heads (each its own group), on the
+        # CPU, whose torch.cumsum rounds the f64 running sum once as the
+        # kernel does (at these decay rates |seg| reaches the hundreds, and
+        # exp(seg_i - seg_j) inherits seg's absolute error)
+        x, dt, a, b, c = (t.cpu() for t in (x, dt, a, b, c))
+        y, fin = ssm.ssd_chunked(x.transpose(0, 1)[None], dt.T[None], a,
+                                 b.transpose(0, 1)[None], c.transpose(0, 1)[None], chunk)
+        want = (y[0].transpose(0, 1).to(DEV), fin[0].transpose(1, 2).to(DEV))
+        worst = max(worst, check_ssd_result(torch, got, want, "float32",
+                                            f"path layer {i} vs ssd_chunked"))
+    x, dt, a, b, c, _ = calls[0]
+    row = ssd_row(torch, sc, f"{m.name} prefill layer", x, dt, a, b, c)
+    row.update(launches=launches, max_abs_err=worst)
+    print(f"ssd path: {launches} launches over {m.n_layers} {m.name} prefill layers "
+          f"({tuple(x.shape)}, N={b.shape[-1]}) f32; max abs err vs ssd_chunked {worst:.3g}")
+    study = ssd_input_study(torch, sc, (x, dt, a, b, c))
+    row["ms_random_inputs"] = study["random"]["ms"]
+    row["timer"]["ms_random_inputs"] = study["random"]["timer"]
+    print("time ssd " + json.dumps(row))
+    return row
+
+
+# ------------------------------------------------------------------ serving
+
+
+def engine_of(cfg, name: str):
+    from repro_torch.config import EngineConfig
+    return (EngineConfig(kind="xla") if name == "xla" else
+            dataclasses.replace(cfg.engine, kind="pallas_rasa", schedule=name))
+
+
+def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
+    """Serve ``prompts`` through ServeSession under each engine of ``names``:
+    prefill logits (with the launch count of one forward checked), then the
+    main path with the counts from 0 just before and read just after."""
+    from repro_torch.serving import ServeSession
+    m = cfg.model
+    b, s = prompts.shape
+    max_seq = s + STEPS
+    per_forward = gemm_launches_per_forward(m, cfg.engine.block_k)
     results = {}
-    for name in ("wls", "wlbp", "base", "xla"):
-        engine = (EngineConfig(kind="xla") if name == "xla" else
-                  dataclasses.replace(cfg.engine, kind="pallas_rasa", schedule=name))
-        model.cfg = dataclasses.replace(cfg, engine=engine)
-        session = ServeSession(model, max_seq=max_seq, device="cuda")
+    for name in names:
+        model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, name))
+        session = ServeSession(model, max_seq=max_seq, device=DEV)
         session.generate(prompts[:, :8], 2)                       # warm-up
         torch.cuda.synchronize()
 
         # prefill logits, for the comparisons
         rk.reset_launches()
-        logits, _ = model.prefill(prompts, model.init_decode_state(BATCH, max_seq))
+        logits, _ = model.prefill(prompts, model.init_decode_state(b, max_seq))
         torch.cuda.synchronize()
         if name != "xla" and rk.launches[name] != per_forward[name]:
-            raise AssertionError(f"{name}: prefill launched {rk.launches[name]}, "
+            raise AssertionError(f"{m.name} {name}: prefill launched {rk.launches[name]}, "
                                  f"expected {per_forward[name]}")
 
         # the main path: counts from 0 just before, read just after
@@ -232,7 +707,7 @@ def serve(torch, cfg) -> dict:
         rk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(prompts, model.init_decode_state(BATCH, max_seq))
+        model.prefill(prompts, model.init_decode_state(b, max_seq))
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         rk.reset_launches()
@@ -242,52 +717,80 @@ def serve(torch, cfg) -> dict:
         t_gen = time.perf_counter() - t0
         counts = dict(rk.launches)
         decode_ms = (t_gen - t_prefill) / STEPS * 1e3
-        if tokens.shape != (BATCH, STEPS) or tokens.min() < 0 or tokens.max() >= m.vocab:
-            raise AssertionError(f"{name}: bad tokens {tuple(tokens.shape)}")
+        if tokens.shape != (b, STEPS) or tokens.min() < 0 or tokens.max() >= m.vocab:
+            raise AssertionError(f"{m.name} {name}: bad tokens {tuple(tokens.shape)}")
         if not torch.isfinite(logits).all():
-            raise AssertionError(f"{name}: non-finite prefill logits")
-        expect = {s: 0 for s in rk.SCHEDULES}
+            raise AssertionError(f"{m.name} {name}: non-finite prefill logits")
+        expect = {sch: 0 for sch in rk.SCHEDULES}
         if name != "xla":
             expect[name] = per_forward[name] * (1 + STEPS)
         if counts != expect:
-            raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+            raise AssertionError(f"{m.name} {name}: launches {counts}, expected {expect}")
         results[name] = {"logits": logits, "tokens": tokens, "launches": counts,
                          "prefill_s": t_prefill, "decode_ms_per_step": decode_ms,
-                         "tokens_per_s": BATCH * STEPS / (t_gen - t_prefill),
+                         "tokens_per_s": b * STEPS / (t_gen - t_prefill),
                          "max_memory_bytes": torch.cuda.max_memory_allocated()}
-        print(f"serve {name}: prefill {t_prefill * 1e3:.3f} ms, decode "
+        print(f"serve {m.name} {name}: prefill {t_prefill * 1e3:.3f} ms, decode "
               f"{decode_ms:.3f} ms/step, {results[name]['tokens_per_s']:.1f} tok/s, "
               f"peak memory {results[name]['max_memory_bytes']} B, launches {counts}")
+    return results
 
+
+def compare_engines(torch, cfg, results, prompts, build_model) -> None:
+    """Kernel engine vs xla on prefill logits: bf16 within BF16_TOL, then
+    the same weights in f32 within SERVE_TOL."""
+    m = cfg.model
     ref = results["wls"]
-    for s in ("wlbp", "base"):
-        if not torch.equal(results[s]["logits"], ref["logits"]):
-            raise AssertionError(f"{s}: prefill logits not bit-identical to wls")
-        if not torch.equal(results[s]["tokens"], ref["tokens"]):
-            raise AssertionError(f"{s}: tokens differ from wls")
     err16 = rel_err(ref["logits"], results["xla"]["logits"])
     agree = (ref["tokens"] == results["xla"]["tokens"]).float().mean().item()
-    print(f"serve: schedules bit-identical (prefill logits and tokens); bf16 "
-          f"kernel vs xla prefill logits rel_err {err16:.6g} (< {BF16_TOL}); "
-          f"token agreement with xla {agree:.4f}")
+    print(f"serve {m.name}: bf16 kernel vs xla prefill logits rel_err {err16:.6g} "
+          f"(< {BF16_TOL}); token agreement with xla {agree:.4f}")
     if not err16 < BF16_TOL:
-        raise AssertionError(f"bf16 kernel engine vs xla rel_err {err16} >= {BF16_TOL}")
-
-    # the same weights in f32: the GEMM path without bf16 rounding flips
-    del model, results["wlbp"]["logits"], results["base"]["logits"]
+        raise AssertionError(f"{m.name}: bf16 kernel engine vs xla rel_err {err16} >= {BF16_TOL}")
     cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(m, dtype="float32"))
-    model = build_model(cfg32, device="cuda", seed=0)
+    model = build_model(cfg32, device=DEV, seed=0)
     logits32 = {}
     for name in ("wls", "xla"):
-        engine = (EngineConfig(kind="xla") if name == "xla" else
-                  dataclasses.replace(cfg.engine, kind="pallas_rasa", schedule=name))
-        model.cfg = dataclasses.replace(cfg32, engine=engine)
-        logits32[name], _ = model.prefill(prompts, model.init_decode_state(BATCH, max_seq))
+        model.cfg = dataclasses.replace(cfg32, engine=engine_of(cfg, name))
+        logits32[name], _ = model.prefill(
+            prompts, model.init_decode_state(prompts.shape[0], prompts.shape[1]))
     err32 = rel_err(logits32["wls"], logits32["xla"])
-    print(f"serve: f32 weights, kernel vs xla prefill logits rel_err {err32:.6g} "
-          f"(< {SERVE_TOL})")
+    print(f"serve {m.name}: f32 weights, kernel vs xla prefill logits rel_err "
+          f"{err32:.6g} (< {SERVE_TOL})")
     if not err32 < SERVE_TOL:
-        raise AssertionError(f"f32 kernel engine vs xla rel_err {err32} >= {SERVE_TOL}")
+        raise AssertionError(f"{m.name}: f32 kernel engine vs xla rel_err {err32} >= {SERVE_TOL}")
+
+
+def serve(torch, rk, cfg, names, prompt: int, ssd=None) -> dict:
+    """Phases 5 and 7: one model at full width through ServeSession under
+    ``names``; schedules bit-identical; kernel vs xla logits.  ``ssd``: run
+    the SSD path on this model's prefill too (mamba2-130m)."""
+    from repro_torch.models import build_model
+    m = cfg.model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    print(f"serve: built {m.name} ({m.n_layers} layers, d={m.d_model}, vocab={m.vocab}) "
+          f"in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    prompts = torch.randint(0, m.vocab, (BATCH, prompt), device=DEV, generator=gen,
+                            dtype=torch.int32)
+    results = serve_engines(torch, rk, cfg, model, prompts, names)
+    ref = results["wls"]
+    for s in names:
+        if s in rk.SCHEDULES and s != "wls":
+            if not torch.equal(results[s]["logits"], ref["logits"]):
+                raise AssertionError(f"{s}: prefill logits not bit-identical to wls")
+            if not torch.equal(results[s]["tokens"], ref["tokens"]):
+                raise AssertionError(f"{s}: tokens differ from wls")
+            print(f"serve {m.name}: {s} bit-identical to wls (prefill logits and tokens)")
+    if ssd is not None:
+        model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, "xla"))
+        results["ssd_path"] = ssd_path(torch, ssd, model, prompts)
+    del model
+    compare_engines(torch, cfg, results, prompts, build_model)
+    for r in results.values():
+        r.pop("logits", None)
     return results
 
 
@@ -302,8 +805,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, flash_mha
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rasa_gemm as rk
+    from repro_torch.kernels import ssd_chunk as sc
     torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -321,25 +826,57 @@ def main() -> int:
         print("\n".join(line for line in report.splitlines()
                         if "registers" in line or "spill" in line or "entry" in line))
 
-    cfg = get_config("qwen3-1.7b")
-    worst = check_kernels(torch, rk, cfg)
-    step, _ = time_kernels(torch, rk, cfg)
+    qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
+                                                  "zamba2-2.7b"))
+    phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
+    phase("check")
+    worst = check_gemm(torch, rk, (qwen, mamba, zamba))
+    worst["flash"] = check_flash(torch, fa, flash_mha)
+    worst["ssd"] = check_ssd(torch, sc)
+    phase("time")
+    step, gemm_timers = time_gemm(torch, rk, qwen)
     print("time per decode step (M=4, ms; *_wall with launch gaps): " + json.dumps(
         {k: v["decode"] for k, v in step.items()}))
     print("time per prefill (M=512, head M=4, ms; *_wall with launch gaps): " + json.dumps(
         {k: v["prefill"] for k, v in step.items()}))
-    results = serve(torch, cfg)
+    time_flash(torch, fa, flash_mha)
+    time_ssd(torch, sc)
+    phase("serve qwen3-1.7b")
+    results = serve(torch, rk, qwen, ("wls", "wlbp", "base", "xla"), PROMPT)
+    phase("flash path")
+    flash = flash_path(torch, fa, flash_mha, qwen)
+    phase("serve mamba2-130m")
+    ssd = serve(torch, rk, mamba, ("wls", "xla"), SSM_PROMPT, ssd=sc)["ssd_path"]
+    phase("serve zamba2-2.7b")
+    serve(torch, rk, zamba, ("wls", "xla"), SSM_PROMPT)
 
     bound_by = max(("bytes", "operations"), key=lambda b: step[b]["decode"])
     kernels = []
     for s in rk.SCHEDULES:
         kernels.append({
-            "name": rk.KERNEL_NAMES[s], "route": "cuda", "source": SOURCE,
+            "name": rk.KERNEL_NAMES[s], "route": "cuda", "source": SOURCES["gemm"],
             "replaces": REPLACES[s], "launches": results[s]["launches"][s],
             "max_abs_err": worst[s], "ms": step[s]["decode"],
             "plain_ms": step["plain"]["decode"], "bound_ms": step[bound_by]["decode"],
             "bound_by": bound_by, "library_ms": step["library"]["decode"],
+            "timer": {"ms": gemm_timers[s], "plain_ms": gemm_timers["plain"],
+                      "library_ms": gemm_timers["library"]},
             "work": "one qwen3-1.7b decode step of GEMMs (M=4, bf16)"})
+    for key, row, name, work in (
+            ("flash", flash, fa.KERNEL_NAMES["flash"],
+             "one qwen3-1.7b prefill layer's attention (B=4, 16/8 heads, S=512, D=128, bf16)"),
+            ("ssd", ssd, sc.KERNEL_NAMES["ssd"],
+             "one mamba2-130m prefill layer's SSD scan (BH=96, S=512, P=64, N=128, f32); "
+             "ms_random_inputs: the same shape on phase 4's random inputs")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[key],
+            "replaces": REPLACES[key], "launches": row["launches"],
+            "max_abs_err": max(worst[key], row["max_abs_err"]), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"ms_random_inputs": row["ms_random_inputs"]}
+               if "ms_random_inputs" in row else {}),
+            "timer": row["timer"], "work": work})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("rasa_gemm",)
+SOURCES = ("rasa_gemm", "flash_attention", "ssd_chunk")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per fresh build
@@ -50,10 +50,11 @@ def build(name: str) -> Path:
     out = _lib_path(name)
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -76,3 +77,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def raise_if(err: int, error_string, what: str) -> None:
+    """Raise when a launcher returned a CUDA error (``error_string`` is the
+    library's ``cudaGetErrorString`` export)."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: {error_string(err).decode()} ({err})")

@@ -26,6 +26,8 @@ import dataclasses
 
 import torch
 
+from . import _build
+
 SCHEDULES = ("base", "wlbp", "wls")
 
 #: kernel launches per schedule, counted where the wrapper launches
@@ -128,7 +130,6 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def _lib():
-    from . import _build
     lib = _build.load("rasa_gemm")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -140,12 +141,6 @@ def _lib():
         lib.rasa_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def _raise_if(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           f"{lib.rasa_error_string(err).decode()} ({err})")
 
 
 def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
@@ -185,12 +180,13 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     args = (_DTYPES[a.dtype], a.data_ptr(), a.stride(0), b.data_ptr(),
             b.stride(0), b.stride(1), out.data_ptr(), m, n, k)
     if schedule == "wls":
-        _raise_if(lib, lib.rasa_wls(*args, blocks.bk, stream), "rasa_wls launch")
+        _build.raise_if(lib.rasa_wls(*args, blocks.bk, stream), lib.rasa_error_string,
+                        "rasa_wls launch")
         launches["wls"] += 1
     else:
         wlbp = int(schedule == "wlbp")
         for k0 in range(0, k, blocks.bk):
-            _raise_if(lib, lib.rasa_ws_chunk(wlbp, *args, k0, blocks.bk, stream),
-                      f"rasa_ws_chunk<{schedule}> launch")
+            _build.raise_if(lib.rasa_ws_chunk(wlbp, *args, k0, blocks.bk, stream),
+                            lib.rasa_error_string, f"rasa_ws_chunk<{schedule}> launch")
             launches[schedule] += 1
     return out.to(out_dtype)

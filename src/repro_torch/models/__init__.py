@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder (transformer.py) for now.
+"""Model zoo of the port: the dense decoder (transformer.py) and the ssm /
+hybrid language models (ssm_lm.py).
 
 All GEMMs route through the configurable matrix engine
 (:func:`repro_torch.models.common.matmul`).
@@ -9,18 +10,26 @@ from __future__ import annotations
 import torch
 
 from ..config import RunConfig
+from . import ssm_lm, transformer
 from .common import resolve_device
 from .convert import params_from_jax
-from .transformer import DecodeState, DenseTransformer, init_params
+from .ssm_lm import HybridState, SSMLanguageModel
+from .transformer import DecodeState, DenseTransformer
+
+#: either family's model: the same prefill / decode_step / init_decode_state
+Model = DenseTransformer | SSMLanguageModel
 
 
-def build_model(cfg: RunConfig, device="cuda", seed: int = 0) -> DenseTransformer:
+def build_model(cfg: RunConfig, device="cuda", seed: int = 0) -> Model:
     """The model of ``cfg`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    transformer.check_family(cfg.model, ("dense", *ssm_lm.SSM_FAMILIES))
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return DenseTransformer(cfg, init_params(cfg.model, gen, device))
+    if cfg.model.family in ssm_lm.SSM_FAMILIES:
+        return SSMLanguageModel(cfg, ssm_lm.init_params(cfg.model, gen, device))
+    return DenseTransformer(cfg, transformer.init_params(cfg.model, gen, device))
 
 
-__all__ = ["build_model", "params_from_jax", "resolve_device",
-           "DenseTransformer", "DecodeState"]
+__all__ = ["build_model", "params_from_jax", "resolve_device", "Model",
+           "DenseTransformer", "DecodeState", "SSMLanguageModel", "HybridState"]

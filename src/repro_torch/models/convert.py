@@ -3,8 +3,10 @@
 ``jax.random`` cannot be reproduced in torch, so parity with the reference
 uses the reference's own initialised weights.  The tree comes in as numpy
 arrays (``jax.tree.map(np.asarray, params)``) with stacked [L, ...] layer
-leaves; bf16 (``ml_dtypes.bfloat16``) is copied bit for bit through an
-int16 view.  Nothing here imports jax.
+leaves (the hybrid's ``shared_attn`` is one unstacked dict); bf16
+(``ml_dtypes.bfloat16``) is copied bit for bit through an int16 view, and
+f32 leaves (the SSM's ``dt_bias``, ``A_log``, ``D_skip``) stay f32.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..config import RunConfig
 from .common import resolve_device
+from .ssm_lm import SSM_FAMILIES, SSMLanguageModel
 from .transformer import DenseTransformer, check_family
 
 
@@ -26,9 +29,10 @@ def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(cfg: RunConfig, tree: dict, device="cuda") -> DenseTransformer:
+def params_from_jax(cfg: RunConfig, tree: dict,
+                    device="cuda") -> DenseTransformer | SSMLanguageModel:
     """The port's model holding the reference's parameters ``tree``."""
-    check_family(cfg.model)
+    check_family(cfg.model, ("dense", *SSM_FAMILIES))
     device = resolve_device(device)
     conv = lambda a: tensor_from_numpy(a, device)
     layers = tree["layers"]
@@ -40,4 +44,9 @@ def params_from_jax(cfg: RunConfig, tree: dict, device="cuda") -> DenseTransform
     }
     if "lm_head" in tree:
         params["lm_head"] = conv(tree["lm_head"])
+    if cfg.model.family in SSM_FAMILIES:
+        if "shared_attn" in tree:
+            params["shared_attn"] = {name: conv(leaf)
+                                     for name, leaf in tree["shared_attn"].items()}
+        return SSMLanguageModel(cfg, params)
     return DenseTransformer(cfg, params)

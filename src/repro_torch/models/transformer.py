@@ -5,9 +5,9 @@ Counterpart of the JAX package's ``models/transformer.py``.  The model is an
 blocks; the layer loop is a plain Python loop (the reference scans over
 stacked [L, ...] parameters; ``convert.params_from_jax`` unstacks them).
 Parameters keep the reference's names and [in, out] layouts, and are
-inference-only (``requires_grad=False``).
-
-The moe, vlm and audio families wait for ROADMAP queue 1, item 8.
+inference-only (``requires_grad=False``).  The ssm and hybrid families live
+in ``ssm_lm.py``; the moe, vlm and audio families wait for ROADMAP queue 1,
+item 8.
 """
 
 from __future__ import annotations
@@ -23,21 +23,35 @@ from .layers import KVCache, attention_block, mlp_block, rms_norm, rope_angles
 
 _LATER_FAMILIES = {"moe": "ROADMAP queue 1, item 8 (MoE)",
                    "vlm": "ROADMAP queue 1, item 8 (VLM)",
-                   "audio": "ROADMAP queue 1, item 8 (audio)",
-                   "ssm": "ROADMAP queue 1, item 9 (SSM)",
-                   "hybrid": "ROADMAP queue 1, item 9 (hybrid)"}
+                   "audio": "ROADMAP queue 1, item 8 (audio)"}
 
 
-def check_family(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig, families: tuple[str, ...] = ("dense",)) -> None:
+    """Raise unless ``cfg.family`` is one of ``families``."""
     if cfg.family in _LATER_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
                                   f"{_LATER_FAMILIES[cfg.family]}")
-    if cfg.family != "dense":
-        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in families:
+        raise ValueError(f"family {cfg.family!r} is not one of {families}")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+class ParamBlock(nn.Module):
+    """One layer's parameters, under the reference's names."""
+
+    def __init__(self, params_l: dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in params_l.items():
+            self.register_parameter(name, _param(t))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
 
 
 # ------------------------------------------------------------------- params
@@ -105,19 +119,8 @@ def decoder_block(params_l, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp_block(params_l, h, cfg, engine), new_cache
 
 
-class DecoderBlock(nn.Module):
-    """One layer's parameters, under the reference's names."""
-
-    def __init__(self, params_l: dict[str, torch.Tensor]):
-        super().__init__()
-        for name, t in params_l.items():
-            self.register_parameter(name, _param(t))
-
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return getattr(self, name)
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+class DecoderBlock(ParamBlock):
+    """One decoder layer's parameters; calling it runs the block."""
 
     def forward(self, x, cfg, engine, sin, cos, cache=None):
         return decoder_block(self, x, cfg, engine, sin, cos, cache)
@@ -152,6 +155,15 @@ def positions_for(batch: int, seq: int, offset: int = 0,
 # ------------------------------------------------------------------ serving
 
 
+def logits_from(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head (the embedding, transposed, when tied) of
+    either family's model; fp32 logits."""
+    m = model.cfg.model
+    x = rms_norm(x, model.final_norm, m.rms_eps)
+    head = model.embedding.T if m.tie_embeddings else model.lm_head
+    return matmul(x, head, model.cfg.engine, out_dtype=torch.float32)
+
+
 class DecodeState(NamedTuple):
     caches: list[KVCache]      # one per layer, views of one stacked buffer
     position: int              # next position (uniform over the batch)
@@ -179,12 +191,6 @@ class DenseTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
-    def logits_from(self, x: torch.Tensor) -> torch.Tensor:
-        m = self.model
-        x = rms_norm(x, self.final_norm, m.rms_eps)
-        head = self.embedding.T if m.tie_embeddings else self.lm_head
-        return matmul(x, head, self.cfg.engine, out_dtype=torch.float32)
-
     def _rope(self, batch: int, seq: int, offset: int):
         m = self.model
         pos = positions_for(batch, seq, offset, self.device)
@@ -209,7 +215,7 @@ class DenseTransformer(nn.Module):
         sin, cos = self._rope(b, s, 0)
         x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
                                sin, cos, state.caches)
-        logits = self.logits_from(x[:, -1:])
+        logits = logits_from(self, x[:, -1:])
         return logits[:, 0], DecodeState(caches, s)
 
     @torch.no_grad()
@@ -221,5 +227,5 @@ class DenseTransformer(nn.Module):
         sin, cos = self._rope(b, 1, state.position)
         x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
                                sin, cos, state.caches)
-        logits = self.logits_from(x)
+        logits = logits_from(self, x)
         return logits[:, 0], DecodeState(caches, state.position + 1)

@@ -12,13 +12,14 @@ import dataclasses
 
 import torch
 
-from ..models import DenseTransformer, resolve_device
+from ..models import Model, resolve_device
 
 
 @dataclasses.dataclass
 class ServeSession:
-    """Greedy batched decoding session over ``model`` on ``device``."""
-    model: DenseTransformer
+    """Greedy batched decoding session over ``model`` (either family) on
+    ``device``."""
+    model: Model
     max_seq: int = 128
     device: str | torch.device = "cuda"
 

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.models import build_model
 from repro_torch.serving import ServeSession
 
@@ -39,7 +41,8 @@ def test_no_jax_or_reference_import(path):
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serving, repro_torch.kernels, "
-            "repro_torch.models\n"
+            "repro_torch.models, repro_torch.models.ssm_lm, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -49,22 +52,34 @@ def test_port_imports_with_jax_blocked():
 
 def test_entry_points_refuse_missing_card():
     """With no CUDA device, device='cuda' (the default) raises; there is no
-    silent CPU fallback."""
+    silent CPU fallback.  Both families."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    cfg = get_config("qwen3-1.7b", smoke=True)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(cfg)
-    model = build_model(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServeSession(model, max_seq=16)
-    tokens = ServeSession(model, max_seq=16, device="cpu").generate(
-        torch.zeros((1, 4), dtype=torch.int32), 3)
-    assert tokens.shape == (1, 3) and tokens.dtype == torch.int32
+    for arch in ("qwen3-1.7b", "mamba2-130m", "zamba2-2.7b"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+        model = build_model(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeSession(model, max_seq=16)
+        tokens = ServeSession(model, max_seq=16, device="cpu").generate(
+            torch.zeros((1, 4), dtype=torch.int32), 3)
+        assert tokens.shape == (1, 3) and tokens.dtype == torch.int32
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers launch or raise: a CPU tensor never reaches a
+    plain version through them (only the dispatching entry points take it)."""
+    q = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention(q, q, q)
+    x, dt, a = torch.zeros((2, 8, 4)), torch.zeros((2, 8)), torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sc.ssd_chunk_cuda(x, dt, a, x, x, chunk=8)
+    assert fa.launches["flash"] == 0 and sc.launches["ssd"] == 0
 
 
 def test_later_families_raise_not_implemented():
-    for arch in ("granite-moe-3b-a800m", "qwen2-vl-72b", "musicgen-large",
-                 "mamba2-130m", "zamba2-2.7b"):
+    for arch in ("granite-moe-3b-a800m", "qwen2-vl-72b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(arch, smoke=True), device="cpu")

@@ -10,8 +10,10 @@ on a GPU host that has none:
 import pytest
 import torch
 
-from repro_torch.kernels import SCHEDULES, GemmBlocks
+from repro_torch.kernels import SCHEDULES, GemmBlocks, flash_mha
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rasa_gemm as rk
+from repro_torch.kernels import ssd_chunk as sc
 
 SMALL = GemmBlocks(128, 128, 128)
 
@@ -56,3 +58,75 @@ def test_cuda_gemm_rejects_mixed_dtypes():
     a = torch.zeros(4, 8, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         rk.rasa_gemm(a, torch.zeros(8, 4, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("hq,hkv,s,d,causal", [(4, 4, 128, 64, True), (8, 2, 257, 128, True),
+                                               (8, 1, 300, 256, True), (4, 4, 200, 80, True),
+                                               (4, 2, 256, 80, False)])
+def test_cuda_flash_matches_plain(hq, hkv, s, d, causal, dtype, tol):
+    """The flash kernel (through flash_mha) against its plain version on the
+    same CUDA tensors: the reference's tolerances (test_kernels.py:112,121)."""
+    need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q = torch.randn(2, hq, s, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(dtype)
+    before = fa.launches["flash"]
+    got = flash_mha(q, k, v, causal=causal, block_q=128, block_kv=128)
+    torch.cuda.synchronize()
+    assert fa.launches["flash"] == before + 1
+    want = fa.flash_attention_plain(
+        q.reshape(2 * hq, s, d), k.reshape(2 * hkv, s, d), v.reshape(2 * hkv, s, d),
+        causal=causal, block_q=128, block_kv=128).reshape(2, hq, s, d)
+    assert got.dtype == dtype and rel_err(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_bad_inputs():
+    need_cuda()
+    q = torch.zeros(2, 64, 32, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.to(torch.bfloat16), q)
+    big = torch.zeros(2, 64, 320, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(big, big, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n,chunk", [(3, 128, 16, 8, 32), (4, 512, 64, 128, 256),
+                                            (8, 512, 64, 64, 256), (2, 96, 80, 100, 48)])
+def test_cuda_ssd_matches_plain(bh, s, p, n, chunk, dtype):
+    """The SSD kernel against its plain version on the same CUDA tensors:
+    rtol = atol = 2e-5 in f32 (test_ssd_kernel.py:37), rel_err < 3e-2 in
+    bf16 (:55)."""
+    need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(s + n)
+    x = torch.randn(bh, s, p, device="cuda", generator=gen).to(dtype)
+    dt = torch.rand(bh, s, device="cuda", generator=gen) * 0.19 + 0.01
+    a = -(torch.rand(bh, device="cuda", generator=gen) * 1.5 + 0.5)
+    b = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
+    c = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
+    before = sc.launches["ssd"]
+    y, fin = sc.ssd_chunk_fused(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sc.launches["ssd"] == before + 1
+    want_y, want_fin = sc.ssd_chunk_plain(x, dt, a, b, c, chunk=chunk)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(fin, want_fin, rtol=2e-5, atol=2e-5)
+    else:
+        assert rel_err(y, want_y) < 3e-2 and rel_err(fin, want_fin) < 3e-2
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_rejects_bad_inputs():
+    need_cuda()
+    x = torch.zeros(2, 64, 16, device="cuda")
+    dt, a = torch.zeros(2, 64, device="cuda"), torch.zeros(2, device="cuda")
+    with pytest.raises(TypeError):
+        sc.ssd_chunk_cuda(x, dt, a, x.to(torch.bfloat16), x, chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        sc.ssd_chunk_cuda(x, dt, a, x, x, chunk=48)
