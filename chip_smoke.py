@@ -19,11 +19,14 @@ Phases, each of which raises (exit code != 0) when it fails:
   4. kernel times against their bound, the plain version and the one
      PyTorch call that computes the same function (torch.matmul, and
      scaled_dot_product_attention for flash; none exists for the SSD),
-     which the port never calls.  Bound: the larger of the bytes over the
+     which the port never calls.  The GEMM rows of the kernels line give
+     one qwen3-1.7b decode step of GEMMs (M = 4) and, under prefill_*,
+     one prefill (M = 512; the head sees M = 4).  Bound: the larger of the bytes over the
      HBM rate and the operations over the card's peak for the inputs' type
-     (bf16 tensor cores, or fp32 outside them).  Times are device time from
-     torch.profiler; the "timer" of each row says where CUDA-event time
-     stood in for it;
+     (bf16 tensor cores, or fp32 outside them).  Times are the device's
+     busy time in torch.profiler traces (the union of the kernels'
+     intervals); the "timer" of each row says where CUDA-event time stood
+     in for it;
   5. serving qwen3-1.7b at full width, random weights from a seeded
      torch.Generator, ServeSession.generate (batch 4, prompt 128, 32 steps)
      under the pallas_rasa engine (wls, wlbp, base) and the xla engine;
@@ -116,11 +119,25 @@ def event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
     """One torch.profiler trace of reps fn() calls: the device records per
-    kernel name, and their summed device time in us.  A warm-up step of
-    reps calls runs under the tracer first and is thrown away: on an H100,
-    traces without one lost the first kernel records of their calls."""
+    kernel name, and the device's busy time in us, the union of the
+    records' intervals (base and wlbp let a k-chunk's kernel start while
+    the previous one drains, so their records overlap; elsewhere the union
+    is the sum).  A warm-up step of reps calls runs under the tracer first
+    and is thrown away: on an H100, traces without one lost the first
+    kernel records of their calls."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -130,14 +147,16 @@ def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
             torch.cuda.synchronize()
             prof.step()
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return {e.key: e.count for e in evs}, sum(e.self_device_time_total for e in evs)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {e.key: e.count for e in evs}, busy_us(spans)
 
 
 def device_ms(torch, fn, reps: int) -> tuple[float, float, str]:
     """(time, wall, timer) in ms of one fn() call, after a warm-up.  time is
-    the CUDA kernels' own time summed from torch.profiler traces of reps and
-    2 reps calls (timer "profiler"); wall is CUDA-event time over reps
-    calls, launch gaps included.  The profiler can drop kernel records (on
+    the device's busy time in torch.profiler traces of reps and 2 reps
+    calls (timer "profiler"); wall is CUDA-event time over reps calls,
+    launch gaps included.  The profiler can drop kernel records (on
     an H100 it did, even after a warm-up step), so a pair of traces
     counts only when every kernel's records are a multiple of reps and the
     longer trace holds exactly twice the shorter one's.  After TRACE_PAIRS
@@ -850,18 +869,25 @@ def main() -> int:
     phase("serve zamba2-2.7b")
     serve(torch, rk, zamba, ("wls", "xla"), SSM_PROMPT)
 
-    bound_by = max(("bytes", "operations"), key=lambda b: step[b]["decode"])
+    bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
+                for phase in ("decode", "prefill")}
     kernels = []
     for s in rk.SCHEDULES:
         kernels.append({
             "name": rk.KERNEL_NAMES[s], "route": "cuda", "source": SOURCES["gemm"],
             "replaces": REPLACES[s], "launches": results[s]["launches"][s],
             "max_abs_err": worst[s], "ms": step[s]["decode"],
-            "plain_ms": step["plain"]["decode"], "bound_ms": step[bound_by]["decode"],
-            "bound_by": bound_by, "library_ms": step["library"]["decode"],
+            "plain_ms": step["plain"]["decode"],
+            "bound_ms": step[bound_by["decode"]]["decode"],
+            "bound_by": bound_by["decode"], "library_ms": step["library"]["decode"],
             "timer": {"ms": gemm_timers[s], "plain_ms": gemm_timers["plain"],
                       "library_ms": gemm_timers["library"]},
-            "work": "one qwen3-1.7b decode step of GEMMs (M=4, bf16)"})
+            "work": "one qwen3-1.7b decode step of GEMMs (M=4, bf16)",
+            "prefill_ms": step[s]["prefill"], "prefill_plain_ms": step["plain"]["prefill"],
+            "prefill_library_ms": step["library"]["prefill"],
+            "prefill_bound_ms": step[bound_by["prefill"]]["prefill"],
+            "prefill_bound_by": bound_by["prefill"],
+            "prefill_work": "one qwen3-1.7b prefill of GEMMs, M=512, head M=4, bf16"})
     for key, row, name, work in (
             ("flash", flash, fa.KERNEL_NAMES["flash"],
              "one qwen3-1.7b prefill layer's attention (B=4, 16/8 heads, S=512, D=128, bf16)"),

@@ -7,25 +7,25 @@
 //
 // What bounds it on this card.  At qwen3-1.7b decode (M = batch = 4) every
 // step reads all ~3.44 GB of bf16 weights once, so the floor is the HBM
-// rate: >= 1.03 ms per step at 3.35 TB/s.  At prefill (M = 512) it is the
-// arithmetic: 2 * M * 1.41e9 flop of the layers' GEMMs at the 67 TFLOP/s
-// fp32 SIMT peak, >= 21.5 ms.
+// rate: >= 1.03 ms per step at 3.35 TB/s.  At prefill (M = 512) the
+// layers' GEMMs are 1.44 TFLOP, >= 1.46 ms at the 989 TFLOP/s bf16
+// tensor-core peak, and their inputs and outputs, each moved once, take
+// >= 1.54 ms at 3.35 TB/s: the two bounds are close, so prefill needs the
+// tensor cores (fp32 FMA outside them peaks at 67 TFLOP/s, >= 21.5 ms)
+// and operand reuse in shared memory.
 //
-// What the design does about it.  This is a simple, exact first version:
-// SIMT fp32 FMA (no tensor cores: TF32 would break the reference's
-// rel_err < 1e-5 for f32 inputs), operands staged through shared memory.
-// The schedules keep their meaning:
-//   base  one CTA per (M tile, N tile) for one k-chunk; each CTA loads its
-//         own B slab, so B is re-read from HBM once per M tile.
-//   wlbp  one CTA per N slab for one k-chunk; it loads its bk x TN block of
-//         B into shared memory once and walks every M tile over it: B is
-//         read from HBM once per chunk (the WLBP weight-load skip).
-//   wls   output-stationary: one CTA per output tile keeps an fp32 register
-//         accumulator seeded from C, walks all k-chunks, writes C once.
-// Two tile paths, chosen by M alone:
-//   M > 4 (prefill): 64 x 64 CTA tiles, 4 x 4 outputs per thread, one FMA
-//         chain per output over each chunk (fma_slab); the next k-slab's
-//         loads are issued before the current slab's arithmetic.
+// Three tile paths, chosen by M and the inputs' type:
+//   M > 4, bf16 (prefill): the tensor cores (namespace tc below).  128 x 64
+//         CTA tiles of 8 warps, each warp 32 x 32 outputs as 2 x 4
+//         mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix;
+//         operands arrive by 16-byte cp.async copies through a 3-deep
+//         ring of 64-deep k slabs, so two slabs are in flight while one
+//         is multiplied.
+//   M > 4, f32: SIMT fp32 FMA (TF32 would break the reference's rel_err
+//         < 1e-5 for f32 inputs).  64 x 64 CTA tiles, 4 x 4 outputs per
+//         thread, one FMA chain per output over each chunk (fma_slab);
+//         the next k-slab's loads are issued before the current slab's
+//         arithmetic.
 //   M <= 4 (decode): the M extent is 4, so no thread idles on padding
 //         rows, and each CTA owns 16 columns.  One chain per output would
 //         leave too few threads to keep HBM busy, so each chunk's k range
@@ -33,10 +33,22 @@
 //         block is loaded with 16-byte vector loads in one go; wls issues
 //         the next chunk's loads before summing the current one.  With one
 //         M tile, base and wlbp make the same traversal on this path.
+// The schedules keep their meaning on every path:
+//   base  one launch per k-chunk, one CTA per (M tile, N tile); each CTA
+//         loads its own B slab, so B is re-read from HBM once per M tile.
+//   wlbp  one launch per k-chunk; the chunk's bk x TN block of B is read
+//         from HBM once per N slab, stays in shared memory, and the M
+//         tiles are walked over it (the WLBP weight-load skip).  SIMT: one
+//         CTA per N slab walks every M tile.  bf16: a cluster of G <= 8
+//         CTAs along M shares the block: each loads 1/G of it, gathers the
+//         rest from the others' shared memory, and walks its own M tiles.
+//   wls   output-stationary: one CTA per output tile keeps an fp32 register
+//         accumulator seeded from C, walks all k-chunks, writes C once.
 //
 // Numerics.  The three schedules are bit-identical.  On each path every
 // output's partial sum over one k-chunk is formed in one fixed order by one
-// shared routine (fma_slab: a k-ascending fp32 FMA chain from 0; sk_partial:
+// shared routine (tc::mma_slab: mma k16 steps ascending from a zero
+// accumulator; fma_slab: a k-ascending fp32 FMA chain from 0; sk_partial:
 // such chains over 16 contiguous pieces, added in a fixed pairwise tree),
 // and is then added to C with one rounded add, exactly as the reference's
 // `c_in + dot` and `acc += dot`.
@@ -44,6 +56,7 @@
 // No padding: the kernels mask the ragged edge (zero padding is exact), and
 // take B's strides, so the tied LM head reads embedding.T without a copy.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,7 +70,7 @@ struct Tile {
   static constexpr int LDA = TM + 4, LDB = TN + 4;  // smem pitches: 16-byte rows
   static constexpr int NA = TM * KT / NT, NB = KT * TN / NT;  // loads per thread
 };
-using kSquare = Tile<64, 64, 4, 4, 16>;   // M > 4 (prefill); M <= 4 below
+using kSquare = Tile<64, 64, 4, 4, 16>;   // M > 4, f32; bf16 and M <= 4 below
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -126,12 +139,6 @@ __device__ __forceinline__ void load_b(S* Bs, int ldb, const T* B, long long sbk
 __device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&b)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  b[0] = lo.x; b[1] = lo.y; b[2] = hi.x; b[3] = hi.y;
 }
 
 // The one order every schedule shares on this path: for each of this
@@ -327,6 +334,517 @@ wls_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
       if (m < M && n < N) Cm[(long long)m * N + n] = acc[i][j];
     }
 }
+
+// ------------------------------------------------------- bf16 prefill path
+// M > 4 with bf16 inputs, on the tensor cores.  A CTA owns a TM x TN tile
+// of outputs; warp (wm, wn) of its TM / 32 x 2 warps owns 32 x 32 of them as
+// 2 x 4 fragments of mma.sync.m16n8k16.  Shared memory holds A as [m][k]
+// and B as [k][n], each row padded by 16 bytes, so that the 8 rows one
+// ldmatrix reads fall on distinct banks; ldmatrix.trans turns B's [k][n]
+// rows into the mma's column operand.  Operands arrive in KT-deep slabs
+// by 16-byte cp.async copies.  A 16-byte unit that crosses the matrix's or
+// the chunk's edge, or whose source is not 16-byte aligned (a column
+// slice of A, an odd K), is copied element by element with the same
+// masking; a B that is not n-fast (embedding.T) is transposed on the way
+// in.  So every B lands in one layout, and one ldmatrix path serves all.
+//
+// The shared routine is mma_slab: part += one slab's product, in k16 steps
+// ascending.  A chunk's partial is mma_slab over its slabs from a zeroed
+// part, with zeros beyond the chunk's end, and is added to C (or to wls's
+// accumulator) with one __fadd_rn per output; the mma accumulator is never
+// seeded with C.  Every schedule forms every output's partial by the same
+// mma sequence at the same tile position, so the three are bit-identical.
+//
+// Tile choice: 128 x 64 with 8 warps (32 x 32 each: 4 ldmatrix per 8
+// mma), 64-deep slabs, 3 in the ring (81 KB, so two CTAs fit on an SM);
+// 64 x 64 with 4 warps where 128-row tiles would give fewer CTAs than
+// three quarters of the SMs (tall_tiles).  At qwen3-1.7b's prefill
+// (M = 512) that is 128 CTAs for N = 2048 and 384 for N = 6144 on 132 SMs,
+// and 128 of 64 rows for N = 1024.  On an H100 it was as fast as or faster
+// than 64 x 64 tiles throughout, 4-5 stages, and 32- or 128-deep slabs.
+// Its copies set its pace more than its mma: a 512 x 2048 x 2048 GEMM
+// moves 96 MB from L2 into shared memory.
+
+namespace tc {
+
+namespace cg = cooperative_groups;
+
+using u16 = unsigned short;  // bf16 bits: this path only copies them
+constexpr int TN = 64, KT = 64, kStages = 3;
+constexpr int LDA = KT + 8, LDB = TN + 8;    // padded pitches, in elements
+constexpr int B_SLAB = KT * LDB;             // elements per B slab
+constexpr int kMaxCluster = 8;               // the portable cluster size
+static_assert(LDA * 2 % 16 == 0 && LDB * 2 % 16 == 0, "16-byte rows for cp.async, ldmatrix");
+
+// A CTA tile of TM rows (128, or 64 where 128-row tiles would leave SMs
+// idle): TM / 32 x 2 warps of 32 x 32 outputs.
+template <int TM>
+struct Shape {
+  static constexpr int NT = TM * 2;                             // threads
+  static constexpr int A_SLAB = TM * LDA;                       // elements
+  static constexpr int RA = NT / (KT / 8), RB = NT / (TN / 8);  // rows per pass
+  static constexpr int kGather = KT * TN / 8 / NT;              // see gather_load
+  static_assert(TM * KT / 8 % NT == 0 && KT * TN / 8 % NT == 0, "whole units per thread");
+};
+
+// [m16 tile][n8 tile][mma register] of a warp's 32 x 32 outputs.  Register
+// e of tile (i, j) is output (i * 16 + lane / 4 + e / 2 * 8,
+// j * 8 + lane % 4 * 2 + e % 2) of the warp's tile.
+struct Frag {
+  float v[2][4][4];
+};
+
+__device__ __forceinline__ void zero(Frag& f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f.v[i][j][e] = 0.f;
+}
+
+// acc += part, one rounded add per output (the reference's `c_in + dot`
+// and `acc += dot`); part restarts from zero for the next chunk.
+__device__ __forceinline__ void fold(Frag& acc, Frag& part) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc.v[i][j][e] = __fadd_rn(acc.v[i][j][e], part.v[i][j][e]);
+        part.v[i][j][e] = 0.f;
+      }
+}
+
+// fn(v0, v1, c, row, n, vec) for each pair of neighbouring registers of f
+// (e = 2h and 2h + 1 of a tile: outputs (m, n) and (m, n + 1)): c is the
+// pair's address in C, row whether m < M, vec whether the pair can move as
+// one aligned float2 (whole 32-byte sectors for a warp's four lanes).
+template <class F>
+__device__ __forceinline__ void each_pair(Frag& f, float* Cm, int M, int N, int m0, int n0,
+                                          F fn) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = m0 + warp / 2 * 32 + lane / 4, c0 = n0 + warp % 2 * 32 + lane % 4 * 2;
+  const bool even = N % 2 == 0 && (reinterpret_cast<unsigned long long>(Cm) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = r0 + i * 16 + h * 8, n = c0 + j * 8;
+        fn(f.v[i][j][2 * h], f.v[i][j][2 * h + 1], Cm + (long long)m * N + n, m < M,
+           n, even && n + 1 < N);
+      }
+}
+
+// acc = C over the tile (0 outside M x N).
+__device__ __forceinline__ void seed(Frag& acc, float* Cm, int M, int N, int m0, int n0) {
+  each_pair(acc, Cm, M, N, m0, n0, [&](float& v0, float& v1, const float* c, bool row, int n,
+                                       bool vec) {
+    if (row && vec) {
+      const float2 x = *reinterpret_cast<const float2*>(c);
+      v0 = x.x;
+      v1 = x.y;
+    } else {
+      v0 = row && n < N ? c[0] : 0.f;
+      v1 = row && n + 1 < N ? c[1] : 0.f;
+    }
+  });
+}
+
+// C = acc over the tile.  C is updated in place: the wrapper owns it.
+__device__ __forceinline__ void store(Frag& acc, float* Cm, int M, int N, int m0, int n0) {
+  each_pair(acc, Cm, M, N, m0, n0, [&](float& v0, float& v1, float* c, bool row, int n,
+                                       bool vec) {
+    if (row && vec) {
+      *reinterpret_cast<float2*>(c) = make_float2(v0, v1);
+    } else {
+      if (row && n < N) c[0] = v0;
+      if (row && n + 1 < N) c[1] = v1;
+    }
+  });
+}
+
+// Programmatic dependent launch.  A chunk's partial product does not read
+// C, so base and wlbp launch each chunk's kernel with the attribute that
+// lets it start while the previous chunk's kernel drains: let_next_start
+// allows the next kernel on the stream to begin once every CTA of this one
+// has called it, and wait_for_previous returns once every earlier kernel on
+// the stream has finished and its writes to C are visible.  The fold into
+// C stays in chunk order.  Without the attribute (wls) there is nothing to
+// wait for.
+__device__ __forceinline__ void let_next_start() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_previous() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const u16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const u16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) @ b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The one order every schedule shares: part += the product of one slab,
+// As [TM][LDA] and Bs [KT][LDB] at the slab's first k, for this warp's
+// 32 x 32 outputs, in k16 steps ascending.
+__device__ __forceinline__ void mma_slab(Frag& part, const u16* As, const u16* Bs) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const u16* a_row = As + (warp / 2 * 32 + lane % 16) * LDA + lane / 16 * 8;
+  const u16* b_row = Bs + (lane % 16) * LDB + warp % 2 * 32 + lane / 16 * 8;
+#pragma unroll
+  for (int kk = 0; kk < KT; kk += 16) {
+    unsigned a[2][4], b[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ldsm_x4(a[i], a_row + i * 16 * LDA + kk);
+    // b[h]: k 0-7 and 8-15 of columns h * 16 + 0-7, then of h * 16 + 8-15
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ldsm_x4_trans(b[h], b_row + kk * LDB + h * 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_bf16(part.v[i][j], a[i], b[j / 2][j % 2 * 2], b[j / 2][j % 2 * 2 + 1]);
+  }
+}
+
+// A[m0 : m0 + TM, ks : ks + KT] -> As[r * LDA + kk], zero outside m < M and
+// k < kend.  Eight threads cover one row's 128 bytes.
+template <int TM>
+__device__ __forceinline__ void load_a_slab(u16* As, const u16* A, long long lda, int M,
+                                            int m0, int ks, int kend) {
+  constexpr int U = KT / 8, NT = Shape<TM>::NT;  // 16-byte units per row, threads
+#pragma unroll
+  for (int i = 0; i < TM * U / NT; ++i) {
+    const int u = threadIdx.x + i * NT;
+    const int r = u / U, kk = u % U * 8, m = m0 + r, k = ks + kk;
+    u16* dst = As + r * LDA + kk;
+    const u16* src = A + (long long)m * lda + k;
+    if (m < M && k + 8 <= kend && aligned16(src)) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[j] = (m < M && k + j < kend) ? src[j] : u16(0);
+    }
+  }
+}
+
+// B[ks : ks + KT, n0 : n0 + TN] -> Bs[kk * LDB + c], zero outside k < kend
+// and n < N.  An n-fast B (a row-major weight) goes in 16-byte units along
+// n; any other (embedding.T is k-fast) in units of 8 k along a column,
+// read with one 16-byte load where its k stride is 1, and transposed into
+// the same [k][n] layout.
+template <int TM>
+__device__ __forceinline__ void load_b_slab(u16* Bs, const u16* B, long long sbk,
+                                            long long sbn, int N, int n0, int ks, int kend) {
+  constexpr int NT = Shape<TM>::NT;
+  if (sbn == 1) {
+    constexpr int U = TN / 8;  // units per row
+#pragma unroll
+    for (int i = 0; i < KT * U / NT; ++i) {
+      const int u = threadIdx.x + i * NT;
+      const int kk = u / U, c = u % U * 8, k = ks + kk, n = n0 + c;
+      u16* dst = Bs + kk * LDB + c;
+      const u16* src = B + k * sbk + n;
+      if (k < kend && n + 8 <= N && aligned16(src)) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[j] = (k < kend && n + j < N) ? src[j] : u16(0);
+      }
+    }
+  } else {
+    constexpr int U = KT / 8;  // units per column
+#pragma unroll
+    for (int i = 0; i < KT * TN / 8 / NT; ++i) {
+      const int u = threadIdx.x + i * NT;
+      const int c = u / U, kk = u % U * 8, k = ks + kk, n = n0 + c;
+      const u16* src = B + k * sbk + n * sbn;
+      alignas(16) u16 v[8];
+      if (sbk == 1 && k + 8 <= kend && n < N && aligned16(src)) {
+        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = (k + j < kend && n < N) ? src[j * sbk] : u16(0);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Bs[(kk + j) * LDB + c] = v[j];
+    }
+  }
+}
+
+// Where this thread's 16-byte units of an A and a B slab come from (at
+// k = 0) and go to, set up once per CTA tile.  Unit i of A is row
+// a_row + i * RA of the tile, columns a_col + 0-7 of the slab; unit i of B
+// is slab row b_row + i * RB, columns b_col + 0-7 (RA, RB: Shape).
+// a_fast (b_fast) holds when every such unit of a whole slab is one
+// aligned cp.async: the tile
+// lies inside M (N), the pointer and the row stride keep 16-byte alignment
+// (and B is n-fast).  A whole slab lies inside the chunk and starts on a
+// multiple of 8; every other slab goes through the masked loaders.
+struct CopyPlan {
+  const u16* a;  // A + (m0 + a_row) * lda + a_col
+  const u16* b;  // B + b_row * sbk + n0 + b_col
+  long long a_step, b_step;  // RA rows of A, RB rows of B
+  int a_dst, b_dst;          // shared-memory offsets of unit 0
+  bool a_fast, b_fast;
+};
+
+template <int TM>
+__device__ __forceinline__ CopyPlan make_plan(const u16* A, long long lda, const u16* B,
+                                              long long sbk, long long sbn, int M, int N,
+                                              int m0, int n0) {
+  const int a_row = threadIdx.x / (KT / 8), a_col = threadIdx.x % (KT / 8) * 8;
+  const int b_row = threadIdx.x / (TN / 8), b_col = threadIdx.x % (TN / 8) * 8;
+  CopyPlan p;
+  p.a = A + (long long)(m0 + a_row) * lda + a_col;
+  p.b = B + b_row * sbk + n0 + b_col;
+  p.a_step = Shape<TM>::RA * lda;
+  p.b_step = Shape<TM>::RB * sbk;
+  p.a_dst = a_row * LDA + a_col;
+  p.b_dst = b_row * LDB + b_col;
+  p.a_fast = m0 + TM <= M && aligned16(A) && lda % 8 == 0;
+  p.b_fast = n0 + TN <= N && sbn == 1 && aligned16(B) && sbk % 8 == 0;
+  return p;
+}
+
+__device__ __forceinline__ bool whole_slab(int ks, int kend) {
+  return ks + KT <= kend && (ks & 7) == 0;
+}
+
+// The A slab at ks -> As, by the plan where it can, masked otherwise.
+template <int TM>
+__device__ __forceinline__ void copy_a(u16* As, const CopyPlan& p, const u16* A, long long lda,
+                                       int M, int m0, int ks, int kend) {
+  constexpr int RA = Shape<TM>::RA;
+  if (p.a_fast && whole_slab(ks, kend)) {
+#pragma unroll
+    for (int i = 0; i < TM / RA; ++i)
+      cp_async16(As + p.a_dst + i * RA * LDA, p.a + i * p.a_step + ks);
+  } else {
+    load_a_slab<TM>(As, A, lda, M, m0, ks, kend);
+  }
+}
+
+// The B slab at ks -> Bs, by the plan where it can, masked otherwise.
+template <int TM>
+__device__ __forceinline__ void copy_b(u16* Bs, const CopyPlan& p, const u16* B, long long sbk,
+                                       long long sbn, int N, int n0, int ks, int kend) {
+  constexpr int RB = Shape<TM>::RB;
+  if (p.b_fast && whole_slab(ks, kend)) {
+    const u16* src = p.b + ks * sbk;
+#pragma unroll
+    for (int i = 0; i < KT / RB; ++i)
+      cp_async16(Bs + p.b_dst + i * RB * LDB, src + i * p.b_step);
+  } else {
+    load_b_slab<TM>(Bs, B, sbk, sbn, N, n0, ks, kend);
+  }
+}
+
+// base (one chunk: kbeg = k0, kstop = min(k0 + bk, K), chained) and wls
+// (kbeg = 0, kstop = K): the CTA of output tile (blockIdx.y, blockIdx.x)
+// adds each chunk's partial to its accumulator, seeded from C, with one
+// rounded add, and writes C once.  The ring runs across chunk boundaries:
+// the next chunk's first slabs are in flight while this chunk's last ones
+// are multiplied.  A chained launch reads C only once the previous kernel
+// on the stream has finished, before its last slab's mma.
+template <int TM>
+__global__ void __launch_bounds__(Shape<TM>::NT, 2)
+tile_kernel(const u16* A, long long lda, const u16* B, long long sbk, long long sbn,
+            float* Cm, int M, int N, int kbeg, int kstop, int bk, int chained) {
+  constexpr int A_SLAB = Shape<TM>::A_SLAB;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  u16* As = reinterpret_cast<u16*>(tc_smem);
+  u16* Bs = As + kStages * A_SLAB;
+  let_next_start();
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const CopyPlan plan = make_plan<TM>(A, lda, B, sbk, sbn, M, N, m0, n0);
+  Frag acc, part;
+  bool seeded = !chained;
+  if (seeded) seed(acc, Cm, M, N, m0, n0);
+  zero(part);
+  int pk0 = kbeg, pks = kbeg;  // the next slab to copy: its chunk and k
+  auto issue = [&](int stage) {
+    if (pk0 < kstop) {
+      const int pend = min(pk0 + bk, kstop);
+      copy_a<TM>(As + stage * A_SLAB, plan, A, lda, M, m0, pks, pend);
+      copy_b<TM>(Bs + stage * B_SLAB, plan, B, sbk, sbn, N, n0, pks, pend);
+      pks += KT;
+      if (pks >= pend) pk0 = pks = pend;
+    }
+    cp_async_commit();  // empty groups keep the count that wait relies on
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  int ck0 = kbeg, cks = kbeg;  // the slab to multiply: its chunk and k
+  for (int i = 0; ck0 < kstop; ++i) {
+    cp_async_wait<kStages - 2>();  // slab i has landed (this thread's part)
+    __syncthreads();               // ... everyone's; slab i - 1 is read
+    issue((i + kStages - 1) % kStages);
+    const int cend = min(ck0 + bk, kstop);
+    const bool last = cks + KT >= cend;  // the chunk's last slab
+    if (last && !seeded) {
+      wait_for_previous();
+      seed(acc, Cm, M, N, m0, n0);  // in flight during the mma below
+      seeded = true;
+    }
+    mma_slab(part, As + i % kStages * A_SLAB, Bs + i % kStages * B_SLAB);
+    cks += KT;
+    if (last) {  // the chunk's partial is whole
+      fold(acc, part);
+      ck0 = cks = cend;
+    }
+  }
+  store(acc, Cm, M, N, m0, n0);
+}
+
+// A slab of the chunk's B block from the shared memory of cluster CTA
+// `owner` into this CTA's (the TN data columns of its KT rows), through
+// kGather 16-byte registers per thread: gather_load issues the reads,
+// gather_store writes them once they are needed.
+template <int TM>
+__device__ __forceinline__ void gather_load(uint4 (&g)[Shape<TM>::kGather], u16* slab,
+                                            int owner) {
+  const u16* src = cg::this_cluster().map_shared_rank(slab, owner);
+#pragma unroll
+  for (int i = 0; i < Shape<TM>::kGather; ++i) {
+    const int u = threadIdx.x + i * Shape<TM>::NT;
+    g[i] = *reinterpret_cast<const uint4*>(src + u / (TN / 8) * LDB + u % (TN / 8) * 8);
+  }
+}
+
+template <int TM>
+__device__ __forceinline__ void gather_store(const uint4 (&g)[Shape<TM>::kGather], u16* slab) {
+#pragma unroll
+  for (int i = 0; i < Shape<TM>::kGather; ++i) {
+    const int u = threadIdx.x + i * Shape<TM>::NT;
+    *reinterpret_cast<uint4*>(slab + u / (TN / 8) * LDB + u % (TN / 8) * 8) = g[i];
+  }
+}
+
+// wlbp, one k-chunk [k0, kend) of nslab slabs.  The cluster (blockIdx.x,
+// its G CTAs along M) owns N slab blockIdx.y: CTA r copies slabs r, r + G,
+// ... of the chunk's B block from HBM, and then walks M tiles r, r + G,
+// ... over the resident block, A streaming through a ring of kWlbpStages
+// slabs (two, so that two CTAs fit on an SM beside the block).  On its
+// first tile it takes the other CTAs' slabs from their shared memory one
+// slab ahead of their use, so the gather overlaps the mma.  Each tile's
+// partial is added to C, which it reads once the previous kernel on the
+// stream has finished, before its last slab's mma.
+constexpr int kWlbpStages = 2;
+
+template <int TM>
+__global__ void __launch_bounds__(Shape<TM>::NT, 2)
+wlbp_kernel(const u16* A, long long lda, const u16* B, long long sbk, long long sbn,
+            float* Cm, int M, int N, int k0, int kend, int nslab) {
+  constexpr int S = kWlbpStages, A_SLAB = Shape<TM>::A_SLAB;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  u16* Bblk = reinterpret_cast<u16*>(tc_smem);  // nslab x [KT][LDB]
+  u16* As = Bblk + nslab * B_SLAB;              // the ring of A slabs
+  let_next_start();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int n0 = blockIdx.y * TN;
+  const CopyPlan share = make_plan<TM>(A, lda, B, sbk, sbn, M, N, r * TM, n0);
+  for (int s = r; s < nslab; s += G)
+    copy_b<TM>(Bblk + s * B_SLAB, share, B, sbk, sbn, N, n0, k0 + s * KT, kend);
+  cp_async_commit();
+  cp_async_wait<0>();
+  cluster.sync();  // every CTA's share of the block has landed
+  bool first = true;
+  for (int m0 = r * TM; m0 < M; m0 += G * TM) {
+    const CopyPlan plan = make_plan<TM>(A, lda, B, sbk, sbn, M, N, m0, n0);
+    Frag acc, part;
+    zero(part);
+    auto issue = [&](int s) {
+      if (s < nslab) copy_a<TM>(As + s % S * A_SLAB, plan, A, lda, M, m0, k0 + s * KT, kend);
+      cp_async_commit();
+    };
+    const auto remote = [&](int s) { return first && s < nslab && s % G != r; };
+    uint4 g[Shape<TM>::kGather];
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      issue(s);
+      if (remote(s)) {
+        gather_load<TM>(g, Bblk + s * B_SLAB, s % G);
+        gather_store<TM>(g, Bblk + s * B_SLAB);
+      }
+    }
+    int pending = -1;  // the slab whose gathered units wait in g
+    for (int s = 0; s < nslab; ++s) {
+      if (pending >= 0) gather_store<TM>(g, Bblk + pending * B_SLAB);
+      pending = -1;
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      issue(s + S - 1);
+      if (remote(s + S - 1)) {
+        pending = s + S - 1;
+        gather_load<TM>(g, Bblk + pending * B_SLAB, pending % G);
+      }
+      if (s == nslab - 1) {
+        if (first) wait_for_previous();
+        seed(acc, Cm, M, N, m0, n0);  // in flight during the mma below
+      }
+      mma_slab(part, As + s % S * A_SLAB, Bblk + s * B_SLAB);
+    }
+    fold(acc, part);
+    store(acc, Cm, M, N, m0, n0);
+    first = false;
+    __syncthreads();  // the next tile's first copies reuse the ring
+  }
+  cluster.sync();  // no CTA leaves while another may still read its block
+}
+
+template <int TM>
+int smem_bytes(int a_stages, int b_slabs) {
+  return (a_stages * Shape<TM>::A_SLAB + b_slabs * B_SLAB) * (int)sizeof(u16);
+}
+
+
+}  // namespace tc
 
 // ------------------------------------------------------------- decode path
 // M <= 4.  One output per thread leaves too few threads to keep HBM busy, so
@@ -580,6 +1098,119 @@ int wls(const void* a, long long lda, const void* b, long long sbk, long long sb
 }
 
 
+namespace tc {
+
+// Launches kernel with the given cluster size (0: none) and, with overlap,
+// the programmatic dependent launch attribute; returns the launch's error.
+// A refused launch (shared memory, cluster) returns its error: there is no
+// other path.  The kernel's attributes are set again only for a larger
+// launch or another device (a launch costs the host a few microseconds,
+// and base and wlbp make one per chunk): the shared memory it may use, and
+// the largest carveout, so that two CTAs (of one launch, or of a chunk's
+// launch and the next one's) fit on an SM.
+template <auto kernel, typename... Args>
+int launch_ex(dim3 grid, int threads, int smem, cudaStream_t stream, int cluster, bool overlap,
+              Args... args) {
+  static int set_smem = -1, set_device = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device != set_device || smem > set_smem)) {
+    err = allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) {
+      set_smem = smem;
+      set_device = device;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (cluster > 0) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = cluster;
+    attrs[n].val.clusterDim.y = 1;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (overlap) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = n;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// 128-row tiles, unless they would give fewer CTAs than three quarters of
+// the SMs (qwen3-1.7b's N = 1024 GEMMs at M = 512: 64 CTAs, against 128
+// with 64-row tiles).  Every output's partial is the same mma sequence
+// whatever the tile, so the choice changes no number.
+bool tall_tiles(int M, int N) {
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return 4LL * ((M + 127) / 128) * ((N + TN - 1) / TN) >= 3LL * sms;
+}
+
+template <int TM>
+int ws_chunk(int wlbp, const u16* A, long long lda, const u16* B, long long sbk, long long sbn,
+             float* c, int M, int N, int K, int k0, int bk, cudaStream_t stream) {
+  constexpr int NT = Shape<TM>::NT;
+  const int kend = (long long)k0 + bk < K ? k0 + bk : K;
+  const int nt = (N + TN - 1) / TN, mt = (M + TM - 1) / TM;
+  if (!wlbp)
+    return launch_ex<tile_kernel<TM>>(dim3(nt, mt), NT, smem_bytes<TM>(kStages, kStages),
+                                      stream, 0, true, A, lda, B, sbk, sbn, c, M, N, k0,
+                                      kend, kend - k0, 1);
+  const int nslab = (kend - k0 + KT - 1) / KT;
+  int G = 1;  // CTAs per cluster: a power of two, at most one per M tile
+  while (2 * G <= mt && 2 * G <= kMaxCluster) G *= 2;
+  return launch_ex<wlbp_kernel<TM>>(dim3(G, nt), NT, smem_bytes<TM>(kWlbpStages, nslab),
+                                    stream, G, true, A, lda, B, sbk, sbn, c, M, N, k0, kend,
+                                    nslab);
+}
+
+template <int TM>
+int wls(const u16* A, long long lda, const u16* B, long long sbk, long long sbn, float* c,
+        int M, int N, int K, int bk, cudaStream_t stream) {
+  const int nt = (N + TN - 1) / TN, mt = (M + TM - 1) / TM;
+  return launch_ex<tile_kernel<TM>>(dim3(nt, mt), Shape<TM>::NT,
+                                    smem_bytes<TM>(kStages, kStages), stream, 0, false, A, lda,
+                                    B, sbk, sbn, c, M, N, 0, K, bk < K ? bk : K, 0);
+}
+
+// The bf16 M > 4 entry points.
+int launch_ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sbk,
+                    long long sbn, float* c, int M, int N, int K, int k0, int bk,
+                    cudaStream_t stream) {
+  const u16* A = static_cast<const u16*>(a);
+  const u16* B = static_cast<const u16*>(b);
+  return tall_tiles(M, N)
+             ? ws_chunk<128>(wlbp, A, lda, B, sbk, sbn, c, M, N, K, k0, bk, stream)
+             : ws_chunk<64>(wlbp, A, lda, B, sbk, sbn, c, M, N, K, k0, bk, stream);
+}
+
+int launch_wls(const void* a, long long lda, const void* b, long long sbk, long long sbn,
+               float* c, int M, int N, int K, int bk, cudaStream_t stream) {
+  const u16* A = static_cast<const u16*>(a);
+  const u16* B = static_cast<const u16*>(b);
+  return tall_tiles(M, N) ? wls<128>(A, lda, B, sbk, sbn, c, M, N, K, bk, stream)
+                          : wls<64>(A, lda, B, sbk, sbn, c, M, N, K, bk, stream);
+}
+
+}  // namespace tc
+
+
 // 16-byte vector loads of B need an aligned base, strides that keep every
 // vector aligned along the unit-stride axis, and (along k) chunk starts on
 // a vector boundary.
@@ -628,7 +1259,7 @@ int rasa_ws_chunk(int wlbp, int bf16, const void* a, long long lda, const void* 
   if (M <= kSkTM)
     return bf16 ? sk_launch<__nv_bfloat16>(0, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
                 : sk_launch<float>(0, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
-  return bf16 ? ws_chunk<kSquare, __nv_bfloat16>(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
+  return bf16 ? tc::launch_ws_chunk(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
               : ws_chunk<kSquare, float>(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
 }
 
@@ -639,7 +1270,7 @@ int rasa_wls(int bf16, const void* a, long long lda, const void* b, long long sb
   if (M <= kSkTM)
     return bf16 ? sk_launch<__nv_bfloat16>(1, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, s)
                 : sk_launch<float>(1, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, s);
-  return bf16 ? wls<kSquare, __nv_bfloat16>(a, lda, b, sbk, sbn, c, M, N, K, bk, s)
+  return bf16 ? tc::launch_wls(a, lda, b, sbk, sbn, c, M, N, K, bk, s)
               : wls<kSquare, float>(a, lda, b, sbk, sbn, c, M, N, K, bk, s);
 }
 

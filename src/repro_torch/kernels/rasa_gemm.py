@@ -14,9 +14,9 @@ Hopper CTA):
 
 ``GemmBlocks`` keep their meaning: ``bk`` is the k-chunk, which fixes the
 fp32 reduction's chunking and so the numbers; ``bm``/``bn`` are the
-reference's traversal blocks.  The CUDA CTA tile is a constant of the
-source, chosen inside them (227 KB of shared memory does not hold a
-256x512x256 tile).  All three schedules give bit-identical results.
+reference's traversal blocks.  The CUDA CTA tile is the source's own
+choice, inside them (227 KB of shared memory does not hold a 256x512x256
+tile).  All three schedules give bit-identical results.
 """
 
 from __future__ import annotations
@@ -184,9 +184,9 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
                         "rasa_wls launch")
         launches["wls"] += 1
     else:
-        wlbp = int(schedule == "wlbp")
+        wlbp, what = int(schedule == "wlbp"), f"rasa_ws_chunk<{schedule}> launch"
         for k0 in range(0, k, blocks.bk):
             _build.raise_if(lib.rasa_ws_chunk(wlbp, *args, k0, blocks.bk, stream),
-                            lib.rasa_error_string, f"rasa_ws_chunk<{schedule}> launch")
+                            lib.rasa_error_string, what)
             launches[schedule] += 1
     return out.to(out_dtype)

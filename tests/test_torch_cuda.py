@@ -15,9 +15,6 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rasa_gemm as rk
 from repro_torch.kernels import ssd_chunk as sc
 
-SMALL = GemmBlocks(128, 128, 128)
-
-
 def need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -28,23 +25,44 @@ def rel_err(got, want):
             / want.float().abs().max().clamp_min(1e-6)).item()
 
 
+# (M, K, N), bk, B k-fast (embedding.T) or row-major, with C, A's column
+# offset in a wider tensor (0: contiguous).  The first four are the decode
+# and small-shape cases; the rest cover the bf16 M > 4 tensor-core path:
+# M 5 to 2048, K and N not multiples of 8, a bk not a multiple of 16 and a
+# bk larger than K, and A rows that are not 16-byte aligned.
+GEMM_CASES = [
+    ((1, 256, 256), 128, True, True, 0),
+    ((257, 130, 100), 128, True, True, 0),
+    ((130, 260, 140), 128, True, True, 0),
+    ((4, 2048, 1024), 128, True, True, 0),
+    ((5, 256, 256), 128, False, False, 0),
+    ((64, 512, 384), 512, False, True, 0),
+    ((512, 2048, 1024), 512, False, True, 0),
+    ((2048, 768, 1000), 512, False, False, 0),
+    ((512, 130, 100), 100, False, True, 0),
+    ((257, 260, 140), 512, True, False, 0),
+    ((130, 300, 200), 100, False, True, 3),
+    ((512, 1000, 515), 512, True, True, 1),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 256, 256), (257, 130, 100),
-                                   (130, 260, 140), (4, 2048, 1024)])
-def test_cuda_gemm_matches_plain(shape, dtype):
-    """Each schedule's kernel against the plain version, with C and a
-    strided B: rel_err < 1e-5 (the reference's GEMM tolerance), and the
-    three schedules bit-identical."""
+@pytest.mark.parametrize("shape,bk,b_kfast,with_c,a_offset", GEMM_CASES)
+def test_cuda_gemm_matches_plain(shape, bk, b_kfast, with_c, a_offset, dtype):
+    """Each schedule's kernel against the plain version: rel_err < 1e-5 (the
+    reference's GEMM tolerance), and the three schedules bit-identical."""
     need_cuda()
     m, k, n = shape
     gen = torch.Generator(device="cuda").manual_seed(m + k + n)
-    a = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-    b = torch.randn(n, k, device="cuda", generator=gen).to(dtype).T
-    c = torch.randn(m, n, device="cuda", generator=gen)
-    want = rk.rasa_gemm_plain(a, b, c, blocks=SMALL)
+    a = torch.randn(m, k + a_offset, device="cuda", generator=gen).to(dtype)[:, a_offset:]
+    b = (torch.randn(n, k, device="cuda", generator=gen).to(dtype).T if b_kfast
+         else torch.randn(k, n, device="cuda", generator=gen).to(dtype))
+    c = torch.randn(m, n, device="cuda", generator=gen) if with_c else None
+    blocks = GemmBlocks(128, bk, 128)
+    want = rk.rasa_gemm_plain(a, b, c, blocks=blocks)
     before = dict(rk.launches)
-    outs = [rk.rasa_gemm(a, b, c, schedule=s, blocks=SMALL) for s in SCHEDULES]
+    outs = [rk.rasa_gemm(a, b, c, schedule=s, blocks=blocks) for s in SCHEDULES]
     torch.cuda.synchronize()
     for out in outs:
         assert rel_err(out, want) < 1e-5
