@@ -13,15 +13,21 @@ Phases, each of which raises (exit code != 0) when it fails:
      and f32, with and without C: rel_err < 1e-5, schedules bit-identical;
      flash attention through flash_mha at the head layouts of qwen3-1.7b,
      zamba2-2.7b and gemma-2b, S in {128, 257, 4096}, batch 4: rel_err
-     < 2e-2 in bf16, < 1e-5 in f32; the SSD scan at the head layouts of
+     < 2e-2 in bf16, < 1e-5 in f32, over the whole output and over the
+     rows from S/2 on (scaled by their own largest value); the SSD scan at the head layouts of
      mamba2-130m and zamba2-2.7b, S in {512, 1024}, chunk 256, batch 4:
      rtol = atol = 2e-5 in f32, rel_err < 3e-2 in bf16;
   4. kernel times against their bound, the plain version and the one
      PyTorch call that computes the same function (torch.matmul, and
      scaled_dot_product_attention for flash; none exists for the SSD),
-     which the port never calls.  The GEMM rows of the kernels line give
-     one qwen3-1.7b decode step of GEMMs (M = 4) and, under prefill_*,
-     one prefill (M = 512; the head sees M = 4).  Bound: the larger of the bytes over the
+     which the port never calls.  Flash is timed in bf16 at every layout
+     and S of the check (the tensor-core kernel) and once in f32 at the
+     qwen3-1.7b prefill layer (the SIMT kernel); each flash row names the
+     device kernel that ran, read from the trace's records ("unverified:
+     no trace" where no trace held one and the launch counter stands in).
+     The GEMM rows of the kernels line give one qwen3-1.7b decode step of
+     GEMMs (M = 4) and, under prefill_*, one prefill (M = 512; the head
+     sees M = 4).  Bound: the larger of the bytes over the
      HBM rate and the operations over the card's peak for the inputs' type
      (bf16 tensor cores, or fp32 outside them).  Times are the device's
      busy time in torch.profiler traces (the union of the kernels'
@@ -31,7 +37,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      torch.Generator, ServeSession.generate (batch 4, prompt 128, 32 steps)
      under the pallas_rasa engine (wls, wlbp, base) and the xla engine;
   6. the flash path: flash_mha on the q/k/v of every layer of a qwen3-1.7b
-     prefill (batch 4, prompt 512), against the model's own attention;
+     prefill (batch 4, prompt 512), against the model's own attention,
+     every launch on the tensor-core kernel (flash_fwd_tc);
   7. serving mamba2-130m and zamba2-2.7b at full width (batch 4, prompt
      512, 32 steps) under pallas_rasa (wls) and xla, and the SSD path:
      ssd_chunk_fused on the SSD inputs of every mamba2-130m layer of a
@@ -152,8 +159,10 @@ def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
     return {e.key: e.count for e in evs}, busy_us(spans)
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float, float, str]:
-    """(time, wall, timer) in ms of one fn() call, after a warm-up.  time is
+def device_ms(torch, fn, reps: int) -> tuple[float, float, str, set]:
+    """(time, wall, timer, records) of one fn() call, after a warm-up: ms,
+    ms, the timer, and the names of the device records in every trace
+    taken (the kernels that ran).  time is
     the device's busy time in torch.profiler traces of reps and 2 reps
     calls (timer "profiler"); wall is CUDA-event time over reps calls,
     launch gaps included.  The profiler can drop kernel records (on
@@ -165,17 +174,19 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float, str]:
     fn()
     torch.cuda.synchronize()
     wall = event_ms(torch, fn, reps)
+    records = set()
     for _ in range(TRACE_PAIRS):
         once, t1 = kernel_trace(torch, fn, reps)
         twice, t2 = kernel_trace(torch, fn, 2 * reps)
+        records |= once.keys() | twice.keys()
         if (once and twice == {k: 2 * v for k, v in once.items()}
                 and all(v % reps == 0 for v in once.values())):
-            return (t1 + t2) / (3 * reps) / 1e3, wall, "profiler"
+            return (t1 + t2) / (3 * reps) / 1e3, wall, "profiler", records
         print(f"time: kernel records do not add up over {reps} and {2 * reps} calls "
               f"({sum(once.values())}, {sum(twice.values())}); tracing again")
     print(f"time: no trace held every kernel record; CUDA-event time {wall:.6g} ms "
           "stands for the device time (timer: events)")
-    return wall, wall, "events"
+    return wall, wall, "events", records
 
 
 # --------------------------------------------------------------------- GEMM
@@ -300,7 +311,7 @@ def time_gemm(torch, rk, cfg) -> tuple[dict, dict]:
                    "plain": lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks),
                    "library": torch.matmul}
             for name, f in fns.items():
-                dev, w_ms, timer = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+                dev, w_ms, timer, _ = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
                 t[name], wall[name] = dev / len(ws), w_ms / len(ws)
                 timers[name].add(timer)
             t["bytes"], t["operations"] = gemm_bound_ms(mm, k, n, "bfloat16")
@@ -360,60 +371,92 @@ def flash_plain(fa, q, k, v, **kw):
 
 def check_flash(torch, fa, flash_mha) -> float:
     """Phase 3, flash: the kernel through flash_mha against its plain
-    version; returns the max abs error."""
+    version, each call counted on its dtype's route; returns the max abs
+    error."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     worst = 0.0
     for arch, hq, hkv, d in flash_layouts():
         for s in FLASH_SEQS:
             for dtype in (torch.bfloat16, torch.float32):
                 q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, dtype)
+                route = "flash_" + fa.flash_route(dtype, d)
+                before = fa.launches[route]
                 got = flash_mha(q, k, v)
                 torch.cuda.synchronize()
+                if fa.launches[route] != before + 1:
+                    raise AssertionError(f"flash {arch} S={s} {dtype}: no {route} launch")
                 want = flash_plain(fa, q, k, v)
+                # the causal output's first rows set rel_err's scale, so the
+                # rows from S/2 on are held to their own largest value too
                 err = rel_err(got, want)
+                late = rel_err(got[:, :, s // 2:], want[:, :, s // 2:])
                 tol = FLASH_TOL[str(dtype)[6:]]
                 worst = max(worst, (got.float() - want.float()).abs().max().item())
-                print(f"check flash {arch} ({BATCH},{hq}/{hkv},{s},{d}) {str(dtype)[6:]}: "
-                      f"rel_err {err:.3g} (< {tol})")
-                if not err < tol:
-                    raise AssertionError(f"flash {arch} S={s} {dtype}: rel_err {err} >= {tol}")
+                print(f"check flash {arch} ({BATCH},{hq}/{hkv},{s},{d}) {str(dtype)[6:]} "
+                      f"[{route}]: rel_err {err:.3g}, rows from S/2 {late:.3g} (< {tol})")
+                if not (err < tol and late < tol):
+                    raise AssertionError(f"flash {arch} S={s} {dtype}: rel_err {err}, "
+                                         f"rows from S/2 {late}, >= {tol}")
                 del q, k, v, got, want
     return worst
 
 
 def time_flash(torch, fa, flash_mha) -> list[dict]:
-    """Phase 4, flash: bf16 at every layout and S of the check."""
+    """Phase 4, flash: bf16 at every layout and S of the check, then f32 at
+    the qwen3-1.7b prefill layer's shape (the SIMT kernel's time)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(5)
     rows = []
-    for arch, hq, hkv, d in flash_layouts():
-        for s in FLASH_SEQS:
-            q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, torch.bfloat16)
-            rows.append(flash_row(torch, fa, flash_mha, F, arch, q, k, v))
-            print("time flash " + json.dumps(rows[-1]))
-            del q, k, v
+    cases = [(arch, hq, hkv, d, s, torch.bfloat16)
+             for arch, hq, hkv, d in flash_layouts() for s in FLASH_SEQS]
+    arch, hq, hkv, d = flash_layouts()[0]
+    cases.append((f"{arch} prefill layer shape", hq, hkv, d, SSM_PROMPT, torch.float32))
+    for arch, hq, hkv, d, s, dtype in cases:
+        q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, dtype)
+        rows.append(flash_row(torch, fa, flash_mha, F, arch, q, k, v))
+        print("time flash " + json.dumps(rows[-1]))
+        del q, k, v
     return rows
 
 
-def timed_fields(torch, fns: dict) -> dict:
+def timed_fields(torch, fns: dict) -> tuple[dict, set]:
     """{"ms": ..., "plain_ms": ..., ...} device times of each fn, keyed as
-    in the kernels line, and "timer": the timer behind each."""
-    out, timer = {}, {}
+    in the kernels line, and "timer": the timer behind each; and the names
+    of the device records of the "ms" function's traces."""
+    out, timer, records = {}, {}, {}
     for key, fn in fns.items():
-        out[key], _, timer[key] = device_ms(torch, fn, 3)
-    return {**out, "timer": timer}
+        out[key], _, timer[key], records[key] = device_ms(torch, fn, 3)
+    return {**out, "timer": timer}, records["ms"]
+
+
+def timed_kernels(records, names) -> list[str]:
+    """Which of ``names`` appear among the device records' names."""
+    return sorted(n for n in names if any(n in r for r in records))
 
 
 def flash_row(torch, fa, flash_mha, F, what, q, k, v) -> dict:
-    """Kernel, plain and SDPA times (device, profiler) of one causal call."""
+    """Kernel, plain and SDPA times (device, profiler) of one causal call,
+    and the flash device kernel the kernel's traces recorded: the one of
+    its dtype's route, or it raises.  Where no trace held a flash record
+    (CUDA-event time), the route's launch counter stands in and the kernel
+    is marked unverified."""
     b, hq, s, d = q.shape
-    t = timed_fields(torch, {
+    route = fa.flash_route(q.dtype, d)
+    before = fa.launches[f"flash_{route}"]
+    t, records = timed_fields(torch, {
         "ms": lambda: flash_mha(q, k, v),
         "plain_ms": lambda: flash_plain(fa, q, k, v),
         "library_ms": lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=k.shape[1] != hq)})
+    ran = timed_kernels(records, (fa.KERNEL_NAMES["tc"], fa.KERNEL_NAMES["simt"]))
+    kernel = want = fa.KERNEL_NAMES[route]
+    if not ran and t["timer"]["ms"] == "events" and fa.launches[f"flash_{route}"] > before:
+        kernel = "unverified: no trace"
+    elif ran != [want]:
+        raise AssertionError(f"flash {what} S={s} {dtype_name(q)}: traces recorded {ran}, "
+                             f"expected [{want!r}]")
     return {"what": what, "B": b, "Hq": hq, "Hkv": k.shape[1], "S": s, "D": d,
-            "dtype": dtype_name(q), **t,
+            "dtype": dtype_name(q), "device_kernel": kernel, **t,
             **bound_fields(*flash_bound_ms(b * hq, b * k.shape[1], s, s, d, True,
                                            dtype_name(q)))}
 
@@ -458,12 +501,15 @@ def flash_path(torch, fa, flash_mha, cfg) -> dict:
     fa.reset_launches()
     outs = [flash_mha(q, k, v, scale=scale) for q, k, v, scale, _ in calls]
     torch.cuda.synchronize()
-    launches = fa.launches["flash"]
-    if launches != m.n_layers:
-        raise AssertionError(f"flash path launched {launches}, expected {m.n_layers}")
+    counts = dict(fa.launches)
+    launches = counts["flash"]
+    if counts != {"flash": m.n_layers, "flash_tc": m.n_layers, "flash_simt": 0}:
+        raise AssertionError(f"flash path launched {counts}, expected {m.n_layers} "
+                             "on the tensor-core route")
     errs = [rel_err(got, want) for got, (*_, want) in zip(outs, calls)]
     print(f"flash path: {launches} launches over {m.n_layers} qwen3-1.7b prefill layers "
-          f"({BATCH},{m.n_heads}/{m.n_kv_heads},{SSM_PROMPT},{m.resolved_head_dim}) bf16; "
+          f"({BATCH},{m.n_heads}/{m.n_kv_heads},{SSM_PROMPT},{m.resolved_head_dim}) bf16, "
+          f"launches by route {counts}; "
           f"rel_err vs chunked_causal_attention max {max(errs):.3g} (< {FLASH_TOL['bfloat16']})")
     if not max(errs) < FLASH_TOL["bfloat16"]:
         raise AssertionError(f"flash path: rel_err {max(errs)} >= {FLASH_TOL['bfloat16']}")
@@ -472,7 +518,9 @@ def flash_path(torch, fa, flash_mha, cfg) -> dict:
     row["max_abs_err"] = max((o.float() - c[-1].float()).abs().max().item()
                              for o, c in zip(outs, calls))
     print("time flash " + json.dumps(row))
-    return {"launches": launches, **row}
+    return {"launches": launches,
+            "device_kernels": {fa.KERNEL_NAMES["tc"]: counts["flash_tc"],
+                               fa.KERNEL_NAMES["simt"]: counts["flash_simt"]}, **row}
 
 
 # ---------------------------------------------------------------------- SSD
@@ -547,7 +595,7 @@ def ssd_row(torch, sc, what, x, dt, a, b, c) -> dict:
     for x's type."""
     bh, s, p = x.shape
     n = b.shape[-1]
-    t = timed_fields(torch, {
+    t, _ = timed_fields(torch, {
         "ms": lambda: sc.ssd_chunk_fused(x, dt, a, b, c, chunk=SSD_CHUNK),
         "plain_ms": lambda: sc.ssd_chunk_plain(x, dt, a, b, c, chunk=SSD_CHUNK)})
     byte_ms = sc.hbm_bytes_fused(bh, s, p, n, x.element_size()) / HBM_BYTES_PER_S * 1e3
@@ -613,7 +661,7 @@ def ssd_input_study(torch, sc, real) -> dict:
     rows = {}
     for name, args in variants.items():
         fn = lambda: sc.ssd_chunk_fused(*args, chunk=SSD_CHUNK)
-        dev, _, timer = device_ms(torch, fn, 3)
+        dev, _, timer, _ = device_ms(torch, fn, 3)
         rows[name] = {"ms": dev, "timer": timer, **clock_under_load(torch, fn, dev),
                       "weights": weight_shares(torch, args[1], args[2], SSD_CHUNK)}
         print(f"time ssd inputs {name}: " + json.dumps(rows[name]))
@@ -902,6 +950,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"ms_random_inputs": row["ms_random_inputs"]}
                if "ms_random_inputs" in row else {}),
+            **({"device_kernels": row["device_kernels"]} if "device_kernels" in row else {}),
             "timer": row["timer"], "work": work})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

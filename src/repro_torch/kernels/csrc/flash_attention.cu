@@ -1,40 +1,66 @@
-// Flash attention forward for Hopper (sm_90a): online softmax in fp32.
+// Flash attention forward for Hopper (sm_90a): two kernels, one per input type.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
-//   flash_attention_fwd  <- flash_attention (body _flash_kernel), reached
-//                           through ops.flash_mha
+//   flash_attention_fwd  <- flash_attention (:69, body _flash_kernel at :27),
+//                           reached through ops.flash_mha
+// The wrapper (kernels/flash_attention.py, flash_route) picks the kernel and
+// passes its choice in: bf16 inputs go to flash_fwd_tc (tensor cores), f32
+// inputs to flash_fwd_kernel (SIMT fp32; the reference holds f32 to
+// rel_err < 1e-5, which TF32 would break).
 //
-// What it computes.  O[bh] = softmax(scale * Q[bh] K[kv]^T, masked) V[kv]
+// What both compute.  O[bh] = softmax(scale * Q[bh] K[kv]^T, masked) V[kv]
 // with kv = bh / group (GQA without copying the kv heads).  The mask is
 // top-left causal (row i sees columns j <= i) with the finite -1e30 of the
 // reference; kv positions in [skv, skv_pad) are zero keys and zero values
 // (the reference's zero padding to a multiple of block_kv, seen by every
 // row the mask lets see them), and positions at or beyond skv_pad do not
-// exist.  Running max, sum and accumulator are
-// fp32; the output is acc / max(l, 1e-30) in Q's type.
+// exist.  Running max, sum and accumulator are fp32; the output is
+// acc / max(l, 1e-30) in Q's type.  Masked entries add exactly zero once a
+// row has seen column 0, which is in its first tile, so the reference's
+// block-skip rule changes no number and both kernels skip at their own
+// tile granularity.
 //
-// What bounds it on this card.  4 * D flop per (row, visible column) pair
-// against (2 + 2 / group) * S * D elements moved.  For f32 inputs the
-// operations over the 67 TFLOP/s fp32 peak bound it at every S the port
-// drives; for bf16 inputs the card's peak is the tensor cores' 989 TFLOP/s,
-// and the bytes bound it up to S near 1000 (chip_smoke.py reports
-// both sides).  This kernel runs SIMT fp32 whatever the input type, so it
-// sits far above the bf16 bound.
+// What bounds them on this card.  4 * D flop per (row, visible column)
+// pair against (2 + 2 / group) * S * D elements moved.  In bf16 the bytes
+// over 3.35 TB/s bound a causal layer up to S near 1000 (885 at group 2),
+// and the operations over the tensor cores' 989 TFLOP/s above it.  In f32
+// the operations over the 67 TFLOP/s fp32 peak bound it at every S the
+// port drives (chip_smoke.py reports both sides).
 //
-// What the design does about it.  This is a simple, exact first version,
-// SIMT fp32 FMA (no tensor cores; the reference holds f32 inputs to
-// rel_err < 1e-5, which TF32 would break).  One CTA of 256 threads per
-// (bh, 64-row Q tile) walks the 64-column K/V tiles up to the diagonal;
-// the TPU grid's sequential kv axis becomes this loop, since CTAs run in
-// no order.  Q (pre-scaled), the K tile and the V tile are staged in shared
-// memory as fp32; each thread owns a 4 x 4 block of the score tile and a
-// 4-row x (D / 16)-column block of the accumulator, so both products reuse
-// every shared-memory read 4 times.  Rows of a score tile are reduced
-// with warp shuffles over the 16 threads that share them.  Tiles are
-// issued heaviest first (the last Q tiles see the most K tiles).  Masked
-// entries add exactly zero once a row has seen column 0, which is in its
-// first tile, so the reference's block-skip rule changes no number and
-// the kernel skips at its own tile granularity.
+// flash_fwd_tc (bf16): the FlashAttention-2 pattern on mma.sync.  A CTA
+// of 4 warps takes 64 * MT query rows of one bh, each warp 16 * MT rows;
+// the grid issues the heaviest query tiles (the last ones under causality)
+// of every head first.  With mma.sync every operand goes through
+// registers, and the ldmatrix traffic from shared memory sets the pace (a
+// warp's K and V fragments serve only its own rows).  So on grids that
+// fill the card twice over with 128-row CTAs, each warp owns two m16 tiles
+// (MT = 2, D <= 128) and every K and V fragment feeds both; Q is then
+// re-read by ldmatrix at each tile.  On smaller grids (a prefill layer at
+// S 512) 64-row CTAs keep more SMs busy, and Q's fragments are loaded once,
+// into registers.  Key tiles of 64 rows (32 where the accumulators leave
+// fewer registers) come through a 2-deep cp.async ring: tile j + 1 is in
+// flight during the whole of tile j's S = Q K^T, softmax and O += P V.
+// Rows past the sequence (keys >= skv, queries >= sq) and columns past D
+// (padded up to 16) are zero-filled in shared memory, which changes no
+// sum.  S is m16n8k16 bf16 products with fp32 accumulate, K rows as stored
+// being the .col B operand; it is scaled in fp32 after the product (scale
+// * log2(e), for the hardware's 2^x), then masked with -1e30 only on the
+// tiles that need it.  Row max and sum go across the 4 lanes of a quad.
+// P is packed to bf16 straight from S's accumulator layout into A
+// fragments (no trip through shared memory) and multiplied with V by
+// ldmatrix.trans.  That rounding of each probability to bf16 (relative
+// error <= 2^-9) is the one the reference does not make; the row sum l
+// keeps the fp32 probabilities.  Padded rows are never written.
+//
+// flash_fwd_kernel (f32): a simple, exact SIMT fp32 FMA kernel.  One CTA
+// of 256 threads per (bh, 64-row Q tile) walks the 64-column K/V tiles up
+// to the diagonal; the TPU grid's sequential kv axis becomes this loop,
+// since CTAs run in no order.  Q (pre-scaled), the K tile and the V tile
+// are staged in shared memory as fp32; each thread owns a 4 x 4 block of
+// the score tile and a 4-row x (D / 16)-column block of the accumulator,
+// so both products reuse every shared-memory read 4 times.  Rows of a
+// score tile are reduced with warp shuffles over the 16 threads that share
+// them.  Tiles are issued heaviest first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,15 +73,6 @@ constexpr int kR = kBQ / 16;     // score / output rows per thread
 constexpr int kC = kBKV / 16;    // score columns per thread
 constexpr int kPPitch = kBKV + 1;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Row pitch of the Q and K tiles: odd, so that the 16 rows a warp reads at
 // one column fall into distinct banks.
@@ -80,10 +97,10 @@ __device__ __forceinline__ float row_sum16(float x) {
 
 // NU: output columns per thread, d <= 16 * NU.  Thread (tr, tc) owns score
 // entries (tr + 16 i, tc + 16 j) and output entries (tr + 16 i, tc + 16 u).
-template <typename T, int NU>
+template <int NU>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                 T* __restrict__ O, int group, int sq, int skv, int skv_pad, int d,
+flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                 const float* __restrict__ V, float* __restrict__ O, int group, int sq, int skv, int skv_pad, int d,
                  float scale, int causal) {
   extern __shared__ float smem[];
   const int pitch = qk_pitch(d);
@@ -94,13 +111,13 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest tiles first
-  const T* Qb = Q + (long long)bh * sq * d;
-  const T* Kb = K + (long long)(bh / group) * skv * d;
-  const T* Vb = V + (long long)(bh / group) * skv * d;
+  const float* Qb = Q + (long long)bh * sq * d;
+  const float* Kb = K + (long long)(bh / group) * skv * d;
+  const float* Vb = V + (long long)(bh / group) * skv * d;
 
   for (int idx = threadIdx.x; idx < kBQ * d; idx += kThreads) {
     const int r = idx / d, c = idx % d, row = q0 + r;
-    Qs[r * pitch + c] = row < sq ? to_f32(Qb[(long long)row * d + c]) * scale : 0.f;
+    Qs[r * pitch + c] = row < sq ? Qb[(long long)row * d + c] * scale : 0.f;
   }
 
   float m[kR], l[kR], acc[kR][NU];
@@ -119,8 +136,8 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
     for (int idx = threadIdx.x; idx < kBKV * d; idx += kThreads) {
       const int r = idx / d, c = idx % d, col = k0 + r;
       const bool real = col < skv;
-      Ks[r * pitch + c] = real ? to_f32(Kb[(long long)col * d + c]) : 0.f;
-      Vs[r * d + c] = real ? to_f32(Vb[(long long)col * d + c]) : 0.f;
+      Ks[r * pitch + c] = real ? Kb[(long long)col * d + c] : 0.f;
+      Vs[r * d + c] = real ? Vb[(long long)col * d + c] : 0.f;
     }
     __syncthreads();
 
@@ -193,56 +210,455 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
     const int row = q0 + tr + 16 * i;
     if (row >= sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = O + ((long long)bh * sq + row) * d;
+    float* orow = O + ((long long)bh * sq + row) * d;
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
       const int c = tc + 16 * u;
-      if (c < d) orow[c] = from_f32<T>(acc[i][u] / li);
+      if (c < d) orow[c] = acc[i][u] / li;
     }
   }
 }
 
-template <typename T, int NU>
+template <int NU>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
            int skv, int skv_pad, int d, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
-  auto kernel = flash_fwd_kernel<T, NU>;
+  auto kernel = flash_fwd_kernel<NU>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), group, sq, skv, skv_pad, d, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), group, sq, skv, skv_pad, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
              int skv, int skv_pad, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 64) return launch<T, 4>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-  if (d <= 128) return launch<T, 8>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-  return launch<T, 16>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  if (d <= 64) return launch<4>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  if (d <= 128) return launch<8>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  return launch<16>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
 }
+
+// ------------------------------------------------- bf16: the tensor cores
+
+namespace tc {
+
+using u16 = unsigned short;  // bf16 bits: copied, fed to mma, never converted
+
+constexpr int kThreads = 128;              // 4 warps
+constexpr int kStages = 2;                 // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile per padded head dim KD (a multiple of 16, >= d) and MT, the
+// m16 row tiles each warp owns (the CTA takes 64 * MT query rows).  What
+// sets the pace is ldmatrix traffic: each K and V fragment a warp loads
+// feeds MT m16 tiles, and with MT = 1 the Q fragments are loaded once, into
+// registers.  The key tile BN is as large as the registers allow without
+// spills (MT = 2 holds KD accumulators a thread).
+template <int KD, int MT>
+struct Cfg {
+  static constexpr int ROWS = 64 * MT;   // query rows per CTA
+  static constexpr int BN = KD > 128 || (MT == 2 && KD > 80) ? 32 : 64;   // keys per tile
+  static constexpr bool QREG = MT == 1;  // Q fragments in registers, else re-read per tile
+  static constexpr int LD = KD + 8;      // smem pitch: 16-byte rows, conflict-free ldmatrix
+  static constexpr int SMEM = (ROWS + 2 * kStages * BN) * LD * (int)sizeof(u16);
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; the bytes past src_bytes are zero-filled
+// (src_bytes 0: no read at all).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const u16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const u16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) @ b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, the hardware's approximation (relative error ~2^-22); ex2(-1e30) is 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [row0, row0 + R) of a [rows][d] matrix -> dst [R][KD + 8], zero past
+// row `rows` and column d.  vec: d % 8 == 0 and src 16-byte aligned, so
+// every 16-byte unit is one cp.async; otherwise element loads (any d).
+template <int R, int KD>
+__device__ __forceinline__ void load_tile(u16* dst, const u16* src, int row0, int rows, int d,
+                                          bool vec) {
+  constexpr int CH = KD / 8, LD = KD + 8, N = R * CH;
+  // not unrolled: the accumulators leave no registers for hoisted addresses
+#pragma unroll 1
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (N % kThreads != 0 && i >= N) break;
+    const int r = i / CH, c = i % CH * 8, row = row0 + r;
+    u16* s = dst + r * LD + c;
+    const bool in = row < rows && c < d;
+    const u16* g = src + (long long)row * d + c;
+    if (vec) {
+      cp_async16(s, in ? g : src, in ? 16 : 0);
+    } else {
+      unsigned w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned lo = in && c + 2 * e < d ? g[2 * e] : 0u;
+        const unsigned hi = in && c + 2 * e + 1 < d ? g[2 * e + 1] : 0u;
+        w[e] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(s) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Columns col, col + 1 of one output row (bf16 bits), those below d.
+__device__ __forceinline__ void store_pair(u16* row, int col, int d, bool pair, float x,
+                                           float y) {
+  if (col >= d) return;
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+  } else {
+    row[col] = __bfloat16_as_ushort(__float2bfloat16(x));
+    if (col + 1 < d) row[col + 1] = __bfloat16_as_ushort(__float2bfloat16(y));
+  }
+}
+
+// grid (bh, query tiles); block kThreads.  Fragment layout of m16n8k16
+// (g = lane / 4, t = lane % 4): accumulator elements 0, 1 are row g,
+// columns 2t, 2t + 1 of an n8 tile; elements 2, 3 the same columns of row
+// g + 8.  Warp w owns rows [16 MT w, 16 MT (w + 1)) of the CTA's tile.
+template <int KD, int MT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc(const u16* __restrict__ Q, const u16* __restrict__ K, const u16* __restrict__ V,
+             u16* __restrict__ O, int group, int sq, int skv, int skv_pad, int d,
+             float scale_log2, int causal, int vec) {
+  using C = Cfg<KD, MT>;
+  constexpr int BN = C::BN, LD = C::LD, ROWS = C::ROWS;
+  constexpr int KS = KD / 16;   // k16 steps of Q K^T
+  constexpr int NS = BN / 8;    // n8 tiles of a score row block
+  constexpr int NO = KD / 8;    // n8 tiles of an output row block
+  extern __shared__ __align__(16) u16 tc_smem[];
+  u16* sQ = tc_smem;                  // [ROWS][LD]
+  u16* sK = sQ + ROWS * LD;           // [kStages][BN][LD]
+  u16* sV = sK + kStages * BN * LD;   // [kStages][BN][LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;   // heaviest tiles first
+  const int wrow = q0 + warp * 16 * MT;                 // this warp's first row
+  const u16* Qb = Q + (long long)bh * sq * d;
+  const u16* Kb = K + (long long)(bh / group) * skv * d;
+  const u16* Vb = V + (long long)(bh / group) * skv * d;
+
+  // columns at or beyond skv_pad do not exist; causal rows stop at the diagonal
+  const int kv_end = causal ? min(skv_pad, min(q0 + ROWS, sq)) : skv_pad;
+  const int ntiles = (kv_end + BN - 1) / BN;
+
+  load_tile<ROWS, KD>(sQ, Qb, q0, sq, d, vec);
+  load_tile<BN, KD>(sK, Kb, 0, skv, d, vec);
+  load_tile<BN, KD>(sV, Vb, 0, skv, d, vec);
+  cp_async_commit();
+
+  // ldmatrix addresses of this lane: A rows (Q), B rows of K (keys, d
+  // halves) and of V (keys, for .trans)
+  const u16* q_lane = sQ + (warp * 16 * MT + lane % 16) * LD + lane / 16 * 8;
+  const int k_lane = (lane / 16 * 8 + lane % 8) * LD + lane / 8 % 2 * 8;
+  const int v_lane = (lane % 16) * LD + lane / 16 * 8;
+
+  float o[MT][NO][4];
+  float m[MT][2], l[MT][2];   // rows g, g + 8 of each m16 tile; m in log2 units
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  unsigned qf[C::QREG ? KS : 1][4];
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile j has landed; every warp is done with tile j - 1's slot
+    if (j + 1 < ntiles) {
+      const int slot = (j + 1) % kStages;
+      load_tile<BN, KD>(sK + slot * BN * LD, Kb, (j + 1) * BN, skv, d, vec);
+      load_tile<BN, KD>(sV + slot * BN * LD, Vb, (j + 1) * BN, skv, d, vec);
+    }
+    cp_async_commit();
+    if constexpr (C::QREG) {
+      if (j == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], q_lane + ks * 16);
+      }
+    }
+    const int k0 = j * BN;
+    if (causal && k0 > wrow + 16 * MT - 1) continue;   // the tile is above all our rows
+    const u16* Kt = sK + (j % kStages) * BN * LD;
+    const u16* Vt = sV + (j % kStages) * BN * LD;
+
+    // S = Q K^T
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[mt][i][0] = s[mt][i][1] = s[mt][i][2] = s[mt][i][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (C::QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[mt][e] = qf[ks][e];
+        } else {
+          ldsm_x4(a[mt], q_lane + mt * 16 * LD + ks * 16);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned b[4];
+        ldsm_x4(b, Kt + np * 16 * LD + k_lane + ks * 16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // scale in fp32, mask where the tile needs it, online softmax; then P
+    // packed from S's accumulators into A fragments
+    const bool mask = (causal && k0 + BN - 1 > wrow) || k0 + BN > skv_pad;
+    unsigned p[MT][NS / 2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[mt][i][e] * scale_log2;
+          if (mask) {
+            const int col = k0 + i * 8 + 2 * t + (e & 1);
+            const int row = wrow + mt * 16 + g + e / 2 * 8;
+            if (col >= skv_pad || (causal && col > row)) x = kNegInf;
+          }
+          s[mt][i][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[mt][h], quad_max(mx[h]));
+        alpha[h] = ex2(m[mt][h] - m_new);
+        m[mt][h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][i][e] = ex2(s[mt][i][e] - m[mt][e / 2]);
+          rs[e / 2] += s[mt][i][e];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[mt][h] = l[mt][h] * alpha[h] + rs[h];   // lane partials
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[mt][n][0] *= alpha[0];
+        o[mt][n][1] *= alpha[0];
+        o[mt][n][2] *= alpha[1];
+        o[mt][n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        p[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        p[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        p[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        p[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        unsigned b[4];
+        ldsm_x4_trans(b, Vt + kk * 16 * LD + v_lane + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * np], p[mt][kk], b[0], b[1]);
+          mma_bf16(o[mt][2 * np + 1], p[mt][kk], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool pair = d % 2 == 0 && (reinterpret_cast<unsigned long long>(O) & 3) == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow + mt * 16 + g + h * 8;
+      const float li = fmaxf(quad_sum(l[mt][h]), 1e-30f);
+      if (row >= sq) continue;
+      u16* orow = O + ((long long)bh * sq + row) * d;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        store_pair(orow, n * 8 + 2 * t, d, pair, o[mt][n][2 * h] / li,
+                   o[mt][n][2 * h + 1] / li);
+    }
+  }
+}
+
+__host__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+template <int KD, int MT>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
+           int skv, int skv_pad, int d, float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<KD, MT>;
+  auto kernel = flash_fwd_tc<KD, MT>;
+  // the shared memory above 48 KB, and the carveout that lets two CTAs
+  // share an SM, set once per device
+  static int set_device = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != set_device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) set_device = device;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (sq + C::ROWS - 1) / C::ROWS;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  kernel<<<dim3(bh, tiles), kThreads, C::SMEM, stream>>>(
+      static_cast<const u16*>(q), static_cast<const u16*>(k), static_cast<const u16*>(v),
+      static_cast<u16*>(o), group, sq, skv, skv_pad, d, scale * kLog2e, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+// The current device's SM count, read once per device.
+cudaError_t sm_count(int* sms) {
+  static int read_device = -1, read_sms = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != read_device) {
+    err = cudaDeviceGetAttribute(&read_sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) read_device = device;
+  }
+  *sms = read_sms;
+  return err;
+}
+
+// 128-row CTAs (two m16 tiles a warp: each K and V fragment feeds both,
+// and each K/V tile is read from L2 once per 128 rows) where the
+// accumulators fit and the grid fills the card's two CTAs an SM at least
+// twice over; 64-row CTAs otherwise.  The tile changes no row's sums.
+template <int KD>
+int launch_rows(const void* q, const void* k, const void* v, void* o, int bh, int group,
+                int sq, int skv, int skv_pad, int d, float scale, int causal, cudaStream_t s) {
+  if constexpr (KD <= 128) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    if ((long long)bh * ((sq + 127) / 128) >= 4LL * sms)
+      return launch<KD, 2>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  }
+  return launch<KD, 1>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+}
+
+// The smallest instantiated head dim that holds d; the columns past d are
+// zero in shared memory.
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
+             int skv, int skv_pad, int d, float scale, int causal, cudaStream_t s) {
+#define FLASH_TC(KD)                                                                       \
+  if (d <= KD) return launch_rows<KD>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, \
+                                      causal, s);
+  FLASH_TC(32) FLASH_TC(64) FLASH_TC(80) FLASH_TC(128) FLASH_TC(256)
+#undef FLASH_TC
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
 // O = attention(Q, K, V).  Q, O: [bh, sq, d]; K, V: [bh / group, skv, d];
-// all contiguous, bf16 (bf16 = 1) or f32.  skv_pad >= skv is the padded kv
-// extent.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for arguments it does not take.
-int flash_attention_fwd(int bf16, const void* q, const void* k, const void* v, void* o,
+// all contiguous.  skv_pad >= skv is the padded kv extent.  use_tc = 1
+// runs flash_fwd_tc on bf16 tensors, 0 flash_fwd_kernel on f32 ones.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it does not take.
+int flash_attention_fwd(int use_tc, const void* q, const void* k, const void* v, void* o,
                         int bh, int group, int sq, int skv, int skv_pad, int d, float scale,
                         int causal, void* stream) {
   if (d < 1 || d > kMaxD || bh < 1 || bh > 65535 || group < 1 || sq < 1 || skv < 1 ||
       skv_pad < skv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale,
-                                        causal, s)
-              : dispatch<float>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  if (use_tc) return tc::dispatch(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  return dispatch(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
 }
 
 const char* flash_error_string(int err) {

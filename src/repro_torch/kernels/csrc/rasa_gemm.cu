@@ -1068,7 +1068,9 @@ int ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sb
   const T* B = static_cast<const T*>(b);
   const int nt = (N + C::TN - 1) / C::TN;
   if (wlbp) {
-    const int rows = (bk + C::KT - 1) / C::KT * C::KT;
+    // the block holds the chunk's real depth, as wlbp_chunk_kernel reads it
+    const int depth = (long long)k0 + bk < K ? bk : K - k0;
+    const int rows = (depth + C::KT - 1) / C::KT * C::KT;
     const int smem = C::KT * C::LDA * 4 + rows * C::LDB * (int)sizeof(T);
     auto kernel = wlbp_chunk_kernel<C, T>;
     cudaError_t err = allow_smem(kernel, smem);

@@ -14,8 +14,10 @@ a zero key and a zero value, seen by the rows the causal mask lets see it),
 and, in the plain version, kv blocks wholly above the diagonal are skipped.
 Without the causal mask every row sees the padded positions, as in the
 reference (``ops.flash_mha`` refuses such inputs where the reference
-does).  The kernel's CTA tile is a constant of ``csrc/flash_attention.cu``;
-the padding costs it no copy.
+does).  The kernels pick their own CTA tiles (``csrc/flash_attention.cu``);
+the padding costs them no copy.  ``flash_route`` picks the kernel: bf16 runs
+on the tensor cores (``flash_fwd_tc``), f32 on the SIMT fp32 kernel
+(``flash_fwd_kernel``).
 """
 
 from __future__ import annotations
@@ -29,14 +31,31 @@ from . import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-#: the kernel, as named in csrc/flash_attention.cu
-KERNEL_NAMES = {"flash": "flash_attention_fwd"}
-#: kernel launches, counted where the wrapper launches
-launches = {"flash": 0}
+#: the entry point and the device kernel of each route, as named in
+#: csrc/flash_attention.cu
+KERNEL_NAMES = {"flash": "flash_attention_fwd", "tc": "flash_fwd_tc",
+                "simt": "flash_fwd_kernel"}
+#: kernel launches, counted where the wrapper launches: every launch, and
+#: each route's
+launches = {"flash": 0, "flash_tc": 0, "flash_simt": 0}
 
 
 def reset_launches() -> None:
-    launches["flash"] = 0
+    for key in launches:
+        launches[key] = 0
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes q/k/v of ``dtype`` with head dim ``d``: "tc"
+    (tensor cores, bf16) or "simt" (fp32 FMA, f32: the reference holds f32
+    to 1e-5, which TF32 would break)."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the kernel's range 1..{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"flash_attention takes bf16 or f32, got {dtype}")
 
 
 def _padded(n: int, block: int) -> int:
@@ -102,11 +121,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :sq]
 
 
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with its C signatures declared (ctypes would otherwise pass
+    every argument as a 32-bit int)."""
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i, i, f, i, p]
@@ -117,11 +137,15 @@ def _lib():
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    return _typed(_build.load("flash_attention"))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, scale: float | None = None,
                     block_q: int = 512, block_kv: int = 512) -> torch.Tensor:
-    """Attention through the CUDA kernel: q [BH,Sq,D], k/v [BHkv,Skv,D] ->
-    [BH,Sq,D] in q's dtype.
+    """Attention through the CUDA kernel of ``flash_route``: q [BH,Sq,D],
+    k/v [BHkv,Skv,D] -> [BH,Sq,D] in q's dtype.
 
     All three bf16 or all f32, contiguous, on one CUDA device, D <= 256.
     Raises on anything else, including a tensor on the CPU:
@@ -141,8 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q/k/v")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} outside the kernel's range 1..{MAX_HEAD_DIM}")
+    route = flash_route(q.dtype, d)
     if bh > 65535 or max(bh * sq, k.shape[0] * skv) * d >= 2**31 or skv == 0:
         raise ValueError(f"shapes outside the kernel's range: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -154,9 +177,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, bh // k.shape[0], sq, skv, _padded(skv, block_kv), d, scale,
-        int(causal), stream)
+        int(route == "tc"), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+        bh // k.shape[0], sq, skv, _padded(skv, block_kv), d, scale, int(causal), stream)
     _build.raise_if(err, lib.flash_error_string, "flash_attention_fwd launch")
     launches["flash"] += 1
+    launches[f"flash_{route}"] += 1
     return out

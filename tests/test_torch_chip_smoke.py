@@ -19,3 +19,15 @@ import chip_smoke  # noqa: E402
 ])
 def test_busy_us_is_the_union_of_intervals(spans, want):
     assert chip_smoke.busy_us(spans) == want
+
+
+@pytest.mark.parametrize("records,want", [
+    (set(), []),
+    ({"void (anonymous namespace)::tc::flash_fwd_tc<128, 2>(...)"}, ["flash_fwd_tc"]),
+    ({"void (anonymous namespace)::flash_fwd_kernel<8>(...)", "Memset (Device)"},
+     ["flash_fwd_kernel"]),
+    ({"flash_fwd_tc<64, 1>", "flash_fwd_kernel<4>"},
+     ["flash_fwd_kernel", "flash_fwd_tc"]),
+])
+def test_timed_kernels_reads_record_names(records, want):
+    assert chip_smoke.timed_kernels(records, ("flash_fwd_tc", "flash_fwd_kernel")) == want

@@ -29,7 +29,9 @@ def rel_err(got, want):
 # offset in a wider tensor (0: contiguous).  The first four are the decode
 # and small-shape cases; the rest cover the bf16 M > 4 tensor-core path:
 # M 5 to 2048, K and N not multiples of 8, a bk not a multiple of 16 and a
-# bk larger than K, and A rows that are not 16-byte aligned.
+# bk larger than K, and A rows that are not 16-byte aligned.  The last case
+# is a bk deeper than the f32 wlbp block can hold, over a K that it can:
+# the block is sized by the chunk's real depth.
 GEMM_CASES = [
     ((1, 256, 256), 128, True, True, 0),
     ((257, 130, 100), 128, True, True, 0),
@@ -43,6 +45,7 @@ GEMM_CASES = [
     ((257, 260, 140), 512, True, False, 0),
     ((130, 300, 200), 100, False, True, 3),
     ((512, 1000, 515), 512, True, True, 1),
+    ((64, 700, 300), 2048, False, True, 0),
 ]
 
 
@@ -78,27 +81,69 @@ def test_cuda_gemm_rejects_mixed_dtypes():
         rk.rasa_gemm(a, torch.zeros(8, 4, device="cuda"))
 
 
+def flash_both(q, k, v, causal, block=128):
+    """(kernel through flash_mha, plain version) on the same CUDA tensors;
+    asserts that one launch of the dtype's route ran."""
+    b, hq, s, d = q.shape
+    route = "flash_" + fa.flash_route(q.dtype, d)
+    before = dict(fa.launches)
+    got = flash_mha(q, k, v, causal=causal, block_q=block, block_kv=block)
+    torch.cuda.synchronize()
+    assert fa.launches["flash"] == before["flash"] + 1
+    assert fa.launches[route] == before[route] + 1
+    want = fa.flash_attention_plain(
+        q.reshape(b * hq, s, d), k.reshape(-1, s, d), v.reshape(-1, s, d),
+        causal=causal, block_q=block, block_kv=block).reshape(b, hq, s, d)
+    return got, want
+
+
+# (q heads, kv heads, S, D, causal): groups 1, 2 and 8; D 32, 64, 80, 128
+# and 256 (each head dim the tensor-core kernel is built for), and D 33 and
+# 100, which no 16-byte copy takes; S from 1 to 4096 (one key tile, one
+# past it, ragged); grids large enough for the tensor-core kernel's 128-row
+# CTAs (16/8 and 16/16 heads at 4096, 64/8 at 1024); non-causal inputs at
+# S 100, which the reference pads with 28 zero keys.
+FLASH_CASES = [
+    (4, 4, 128, 64, True), (8, 2, 257, 128, True), (8, 1, 300, 256, True),
+    (4, 4, 200, 80, True), (4, 2, 256, 80, False),
+    (2, 2, 1, 64, True), (4, 2, 64, 80, True), (8, 1, 65, 128, True),
+    (4, 4, 257, 256, True), (16, 8, 4096, 128, True), (8, 1, 4096, 256, True),
+    (16, 16, 4096, 80, True), (64, 8, 1024, 128, False), (4, 2, 100, 64, False),
+    (8, 1, 100, 256, False), (4, 4, 70, 33, True), (4, 2, 130, 100, True),
+    (4, 2, 150, 32, True),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("hq,hkv,s,d,causal", [(4, 4, 128, 64, True), (8, 2, 257, 128, True),
-                                               (8, 1, 300, 256, True), (4, 4, 200, 80, True),
-                                               (4, 2, 256, 80, False)])
+@pytest.mark.parametrize("hq,hkv,s,d,causal", FLASH_CASES)
 def test_cuda_flash_matches_plain(hq, hkv, s, d, causal, dtype, tol):
-    """The flash kernel (through flash_mha) against its plain version on the
-    same CUDA tensors: the reference's tolerances (test_kernels.py:112,121)."""
+    """The flash kernel of the dtype's route (bf16: tensor cores, f32: SIMT)
+    through flash_mha against its plain version on the same CUDA tensors:
+    the reference's tolerances (test_kernels.py:112,121)."""
     need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(s + d)
     q = torch.randn(2, hq, s, d, device="cuda", generator=gen).to(dtype)
     k = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(dtype)
     v = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(dtype)
-    before = fa.launches["flash"]
-    got = flash_mha(q, k, v, causal=causal, block_q=128, block_kv=128)
-    torch.cuda.synchronize()
-    assert fa.launches["flash"] == before + 1
-    want = fa.flash_attention_plain(
-        q.reshape(2 * hq, s, d), k.reshape(2 * hkv, s, d), v.reshape(2 * hkv, s, d),
-        causal=causal, block_q=128, block_kv=128).reshape(2, hq, s, d)
+    got, want = flash_both(q, k, v, causal)
     assert got.dtype == dtype and rel_err(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,s,d", [(8, 2, 257, 128), (32, 8, 2048, 128),
+                                         (32, 32, 1100, 80), (8, 1, 300, 256)])
+def test_cuda_flash_large_logits(hq, hkv, s, d):
+    """q and k scaled by 30: logits in the thousands, so each new key tile
+    can raise a row's running max far above the last, and the rescale of
+    the accumulated sum and output must hold (bf16, tensor cores, 2e-2)."""
+    need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(s * d)
+    q = (30 * torch.randn(2, hq, s, d, device="cuda", generator=gen)).to(torch.bfloat16)
+    k = (30 * torch.randn(2, hkv, s, d, device="cuda", generator=gen)).to(torch.bfloat16)
+    v = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = flash_both(q, k, v, True)
+    assert torch.isfinite(got.float()).all() and rel_err(got, want) < 2e-2
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import flash_mha as j_flash_mha
 from repro.kernels.ref import ref_attention as j_ref_attention
 from repro.kernels.ref import ref_decode_attention as j_ref_decode_attention
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_mha, ref
 
 from _torch_parity import normal, rel_err, to_np, to_torch
@@ -82,6 +83,21 @@ def test_flash_mha_non_causal():
     with pytest.raises(AssertionError):
         j_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
                     **BLOCKS)
+
+
+@pytest.mark.parametrize("d", [1, 33, 64, 80, 128, 256, 0, 257])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_flash_route(dtype, d):
+    """bf16 takes the tensor-core kernel at every head dim the kernels take,
+    f32 the SIMT fp32 one; other types and head dims are refused."""
+    if not 0 < d <= fa.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_route(dtype, d)
+    elif dtype == torch.float16:
+        with pytest.raises(TypeError):
+            fa.flash_route(dtype, d)
+    else:
+        assert fa.flash_route(dtype, d) == ("tc" if dtype == torch.bfloat16 else "simt")
 
 
 @pytest.mark.parametrize("causal", [True, False])
