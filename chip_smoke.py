@@ -27,8 +27,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      no trace" where no trace held one and the launch counter stands in).
      The GEMM rows of the kernels line give one qwen3-1.7b decode step of
      GEMMs (M = 4) and, under prefill_*, one prefill (M = 512; the head
-     sees M = 4).  Bound: the larger of the bytes over the
-     HBM rate and the operations over the card's peak for the inputs' type
+     sees M = 4).  Each decode `time gemm` row splits each schedule's
+     device time by record (the GEMM kernel's, and any other, such as a
+     fill) and gives each timed call's share of the HBM rate.  Bound: the
+     larger of the bytes over the HBM rate and the operations over the
+     card's peak for the inputs' type
      (bf16 tensor cores, or fp32 outside them).  Times are the device's
      busy time in torch.profiler traces (the union of the kernels'
      intervals); the "timer" of each row says where CUDA-event time stood
@@ -70,6 +73,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TRACE_PAIRS = 6                # profiler attempts per timed function
 REL_TOL = 1e-5                 # the reference's GEMM tolerance
+# device records of csrc/rasa_gemm.cu's kernels (decode, tensor-core, SIMT)
+GEMM_RECORDS = ("decode_kernel", "tile_kernel", "wlbp_kernel", "base_chunk_kernel",
+                "wlbp_chunk_kernel", "wls_kernel")
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # tests/test_kernels.py:112,121
 SSD_TOL = {"bfloat16": 3e-2, "float32": 2e-5}     # tests/test_ssd_kernel.py:55,37
 SERVE_TOL = 2e-2               # kernel vs xla engine, f32 weights
@@ -136,14 +142,14 @@ def busy_us(spans) -> float:
     return total
 
 
-def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
+def kernel_trace(torch, fn, reps: int) -> tuple[dict, float, dict]:
     """One torch.profiler trace of reps fn() calls: the device records per
-    kernel name, and the device's busy time in us, the union of the
-    records' intervals (base and wlbp let a k-chunk's kernel start while
-    the previous one drains, so their records overlap; elsewhere the union
-    is the sum).  A warm-up step of reps calls runs under the tracer first
-    and is thrown away: on an H100, traces without one lost the first
-    kernel records of their calls."""
+    kernel name, the device's busy time in us, the union of the records'
+    intervals (base and wlbp let a k-chunk's kernel start while the
+    previous one drains, so their records overlap; elsewhere the union is
+    the sum), and each name's device time in us.  A warm-up step of reps
+    calls runs under the tracer first and is thrown away: on an H100,
+    traces without one lost the first kernel records of their calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
@@ -156,13 +162,15 @@ def kernel_trace(torch, fn, reps: int) -> tuple[dict, float]:
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    return {e.key: e.count for e in evs}, busy_us(spans)
+    return ({e.key: e.count for e in evs}, busy_us(spans),
+            {e.key: e.self_device_time_total for e in evs})
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float, float, str, set]:
+def device_ms(torch, fn, reps: int) -> tuple[float, float, str, dict]:
     """(time, wall, timer, records) of one fn() call, after a warm-up: ms,
-    ms, the timer, and the names of the device records in every trace
-    taken (the kernels that ran).  time is
+    ms, the timer, and the device records by name (the kernels that ran):
+    each name's device ms per call from the pair of traces that counted,
+    or None for every name seen where none did.  time is
     the device's busy time in torch.profiler traces of reps and 2 reps
     calls (timer "profiler"); wall is CUDA-event time over reps calls,
     launch gaps included.  The profiler can drop kernel records (on
@@ -176,17 +184,18 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float, str, set]:
     wall = event_ms(torch, fn, reps)
     records = set()
     for _ in range(TRACE_PAIRS):
-        once, t1 = kernel_trace(torch, fn, reps)
-        twice, t2 = kernel_trace(torch, fn, 2 * reps)
+        once, t1, by1 = kernel_trace(torch, fn, reps)
+        twice, t2, by2 = kernel_trace(torch, fn, 2 * reps)
         records |= once.keys() | twice.keys()
         if (once and twice == {k: 2 * v for k, v in once.items()}
                 and all(v % reps == 0 for v in once.values())):
-            return (t1 + t2) / (3 * reps) / 1e3, wall, "profiler", records
+            per_call = {k: (by1[k] + by2[k]) / (3 * reps) / 1e3 for k in once}
+            return (t1 + t2) / (3 * reps) / 1e3, wall, "profiler", per_call
         print(f"time: kernel records do not add up over {reps} and {2 * reps} calls "
               f"({sum(once.values())}, {sum(twice.values())}); tracing again")
     print(f"time: no trace held every kernel record; CUDA-event time {wall:.6g} ms "
           "stands for the device time (timer: events)")
-    return wall, wall, "events", records
+    return wall, wall, "events", dict.fromkeys(records)
 
 
 # --------------------------------------------------------------------- GEMM
@@ -240,7 +249,12 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
         cases += [(mm, m.d_model, m.vocab, True, main) for mm in (BATCH, 512)]
     cases += [(1, 256, 256, False, small), (257, 130, 100, False, small),
               (130, 260, 140, False, small), (3, 130, 100, False, small),
-              (4, 260, 140, True, small)]
+              (4, 260, 140, True, small),
+              # decode chunks deeper than K and than 1024, a ragged last one
+              (4, 700, 300, False, rk.GemmBlocks(128, 2048, 128)),
+              (3, 2500, 515, True, rk.GemmBlocks(128, 2048, 128)),
+              (1, 1500, 1000, False, rk.GemmBlocks(128, 1280, 128)),
+              (2, 6144, 2048, False, main)]
     worst = {s: 0.0 for s in rk.SCHEDULES}
     for mm, k, n, transposed, blocks in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -305,23 +319,29 @@ def time_gemm(torch, rk, cfg) -> tuple[dict, dict]:
             if transposed:
                 mm = BATCH          # the head sees only the last position
             a = torch.randn(mm, k, device=DEV, generator=gen).to(bf16)
-            t, wall = {}, {}
+            t, wall, split = {}, {}, {}
             fns = {**{s: lambda x, w, s=s: rk.rasa_gemm(x, w, schedule=s, blocks=blocks)
                       for s in rk.SCHEDULES},
                    "plain": lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks),
                    "library": torch.matmul}
             for name, f in fns.items():
-                dev, w_ms, timer, _ = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+                dev, w_ms, timer, recs = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
                 t[name], wall[name] = dev / len(ws), w_ms / len(ws)
                 timers[name].add(timer)
+                if phase == "decode" and name in rk.SCHEDULES:
+                    split[name] = record_split(recs, GEMM_RECORDS, len(ws))
             t["bytes"], t["operations"] = gemm_bound_ms(mm, k, n, "bfloat16")
+            extra = {}
+            if split:   # decode: time by device record, share of the HBM rate
+                extra = {"by_record_ms": split, "hbm_share": {
+                    name: hbm_share(t["bytes"], t[name]) for name in timed}}
             for name, v in t.items():
                 step[name][phase] += count * v
             for name, v in wall.items():
                 step[f"{name}_wall"][phase] += count * v
             rows.append({"phase": phase, "M": mm, "K": k, "N": n, "per_step": count,
                          **{f"{kk}_ms": v for kk, v in t.items()},
-                         **{f"{kk}_wall_ms": v for kk, v in wall.items()}})
+                         **{f"{kk}_wall_ms": v for kk, v in wall.items()}, **extra})
             print("time gemm " + json.dumps(rows[-1]))
         del ws
     return step, {name: "+".join(sorted(ts)) for name, ts in timers.items()}
@@ -419,7 +439,7 @@ def time_flash(torch, fa, flash_mha) -> list[dict]:
     return rows
 
 
-def timed_fields(torch, fns: dict) -> tuple[dict, set]:
+def timed_fields(torch, fns: dict) -> tuple[dict, dict]:
     """{"ms": ..., "plain_ms": ..., ...} device times of each fn, keyed as
     in the kernels line, and "timer": the timer behind each; and the names
     of the device records of the "ms" function's traces."""
@@ -427,6 +447,29 @@ def timed_fields(torch, fns: dict) -> tuple[dict, set]:
     for key, fn in fns.items():
         out[key], _, timer[key], records[key] = device_ms(torch, fn, 3)
     return {**out, "timer": timer}, records["ms"]
+
+
+def record_split(records: dict, names, calls: int) -> dict:
+    """Device ms per call by record: the records whose name holds one of
+    ``names`` (the kernels under test) summed under "kernels", every other
+    record (a fill, a copy) under its own name in "other"; None where the
+    records carry no time (CUDA-event fallback)."""
+    if any(v is None for v in records.values()):
+        return {"kernels": None, "other": dict.fromkeys(
+            r for r in records if not any(n in r for n in names))}
+    out = {"kernels": 0.0, "other": {}}
+    for rec, ms in sorted(records.items()):
+        if any(n in rec for n in names):
+            out["kernels"] += ms / calls
+        else:
+            out["other"][rec] = ms / calls
+    return out
+
+
+def hbm_share(byte_ms: float, ms: float) -> float:
+    """The share of the HBM rate a call reached: its bytes' time at that
+    rate over its time."""
+    return byte_ms / ms
 
 
 def timed_kernels(records, names) -> list[str]:

@@ -26,13 +26,27 @@
 //         thread, one FMA chain per output over each chunk (fma_slab);
 //         the next k-slab's loads are issued before the current slab's
 //         arithmetic.
-//   M <= 4 (decode): the M extent is 4, so no thread idles on padding
-//         rows, and each CTA owns 16 columns.  One chain per output would
-//         leave too few threads to keep HBM busy, so each chunk's k range
-//         is split over 16 thread groups (sk_partial), and every chunk's B
-//         block is loaded with 16-byte vector loads in one go; wls issues
-//         the next chunk's loads before summing the current one.  With one
-//         M tile, base and wlbp make the same traversal on this path.
+//   M <= 4 (decode, namespace dec below), bound by the bytes of B, in both
+//         dtypes and all three schedules.  What it does about each limit
+//         of the design it replaced (one CTA of 16 columns per SM, a whole
+//         chunk staged in registers and then in shared memory):
+//         - occupancy: nothing is staged; 256 threads of <= 128 registers
+//           and 16 KB of shared memory, so two CTAs an SM;
+//         - bytes in flight: each thread keeps its next batch of four
+//           16-byte read-only loads of B (and the A values they meet) in
+//           flight while it sums the current one, across chunk ends;
+//         - small grids: the row-major tile narrows (64, 32, 16 or 8
+//           columns in bf16) until the grid gives about one CTA an SM, so
+//           the N = 1024 and 2048 GEMMs fill the card without splitting a
+//           chunk across CTAs;
+//         - serial chunk launches: base and wlbp launch through launch_ex,
+//           each chunk after the first with programmatic dependent launch;
+//         - per-call overheads: embedding.T is read along k in place (no
+//           transposed 2-byte commit), and the wrapper no longer zero-fills
+//           C (c_init = 0: the first sum is added to zero).
+//         Nothing scales with bk: no shared memory holds a chunk, and the
+//         work follows the chunk's real depth, min(bk, K - k0).
+//         With one M tile, base and wlbp make the same traversal here.
 // The schedules keep their meaning on every path:
 //   base  one launch per k-chunk, one CTA per (M tile, N tile); each CTA
 //         loads its own B slab, so B is re-read from HBM once per M tile.
@@ -48,8 +62,9 @@
 // Numerics.  The three schedules are bit-identical.  On each path every
 // output's partial sum over one k-chunk is formed in one fixed order by one
 // shared routine (tc::mma_slab: mma k16 steps ascending from a zero
-// accumulator; fma_slab: a k-ascending fp32 FMA chain from 0; sk_partial:
-// such chains over 16 contiguous pieces, added in a fixed pairwise tree),
+// accumulator; fma_slab: a k-ascending fp32 FMA chain from 0; the decode
+// path's decode_kernel: FMA chains over each thread's k, then fixed trees
+// over the threads that share a column),
 // and is then added to C with one rounded add, exactly as the reference's
 // `c_in + dot` and `acc += dot`.
 //
@@ -847,211 +862,291 @@ int smem_bytes(int a_stages, int b_slabs) {
 }  // namespace tc
 
 // ------------------------------------------------------------- decode path
-// M <= 4.  One output per thread leaves too few threads to keep HBM busy, so
-// here each chunk's k range is split over kSkS thread groups: group w runs
-// the fp32 FMA chain over its own contiguous piece, from 0, and the pieces'
-// sums are added in a fixed pairwise tree.  That order is the decode path's
-// one order, shared by all schedules.  A CTA owns kSkTN columns; it loads
-// the chunk's whole bk x kSkTN block of B at once with 16-byte loads along
-// B's unit-stride axis (row-major weights or the transposed embedding).
-// With a single M tile, base and wlbp make the same traversal here.
+// M <= 4.  A decode GEMM does 8 operations per weight byte, so it is bound
+// by the bytes of B, and the design is about keeping HBM busy: B is never
+// staged in shared memory.  Every thread streams its share of B straight
+// into registers with 16-byte read-only loads (ld.global.nc,
+// L1::no_allocate), converts to fp32 and runs FMA chains against the four
+// rows of A, which it loads beside B (A is small and stays in L2).  One
+// CTA of 256 threads owns a tile of columns and all of K.
+//
+// Two layouts of B:
+//   row-major (sbn == 1): LN lanes x 16 bytes cover one k row of the tile
+//     (LN in 8, 4, 2, 1: 64 to 8 columns in bf16, 32 to 4 in f32), so the
+//     CTA reads 256 / LN rows a step; thread row r takes rows r, r + 256 /
+//     LN, ... of each chunk and holds 4 x V fp32 partials.
+//   k-fast (embedding.T, or any other strides): each column is contiguous
+//     along k, so a warp owns 4 columns and its lanes run along k, 16 bytes
+//     each (256 k in bf16 a step); the four columns reuse one read of A.
 
-constexpr int kSkTM = 4, kSkTN = 16, kSkNT = 256, kSkS = kSkNT / kSkTN;
+namespace dec {
 
-template <typename T>
-__host__ __device__ constexpr int sk_vec() { return 16 / (int)sizeof(T); }
-template <typename T>
-__host__ __device__ constexpr int sk_pitch() { return kSkTN + sk_vec<T>(); }
-__host__ __device__ inline int sk_rows(int bk) { return (bk + kSkS - 1) / kSkS * kSkS; }
+constexpr int NT = 256, kWarps = NT / 32;
+constexpr int kCols = 4;  // k-fast: columns per warp
 
-template <typename T>
-__host__ __device__ inline int sk_smem_bytes(int bk) {
-  return sk_rows(bk) * 16                                  // A: float4 of 4 rows per k
-         + sk_rows(bk) * sk_pitch<T>() * (int)sizeof(T)    // the B block
-         + kSkS * kSkTM * kSkTN * 4;                       // the pieces' sums
-}
-
-// One chunk's A and B values in flight in registers: issued (sk_issue)
-// before they are needed and stored to shared memory (sk_commit) after, so
-// the output-stationary kernel overlaps the next chunk's loads with this
-// chunk's arithmetic.  Each thread holds up to kBatch 16-byte units of B
-// and kBatch values of A, which covers chunks of up to kSkMaxRows k.
-constexpr int kSkMaxRows = 1024;
-
-template <typename T>
-struct SkStage {
-  alignas(16) T b[kBatch][sk_vec<T>()];
-  float a[kBatch];
+// The tile of one CTA.  LN > 0: row-major B, LN lanes of 16 bytes cover a
+// row of the tile (LN * V columns) and the CTA takes NT / LN rows a step.
+// LN == 0: k-fast B, a warp owns kCols columns and its lanes take 32 * V
+// consecutive k a step.
+template <int LN, typename T>
+struct Dec {
+  static constexpr bool KF = LN == 0;
+  static constexpr int V = 16 / (int)sizeof(T);          // elements per 16 bytes
+  static constexpr int STEP = KF ? 32 * V : NT / (KF ? 1 : LN);  // k rows a step
+  static constexpr int UB = KF ? 1 : 4;                  // steps a batch of loads
+  static constexpr int NL = KF ? kCols : UB;             // 16-byte loads of B a batch
+  static constexpr int TN = KF ? kWarps * kCols : LN * V;  // tile columns
+  static constexpr int PC = KF ? kCols : V;              // partial columns per thread
+  static constexpr int OUT = 4 * TN;                     // outputs per tile
 };
 
-// Unit u of this thread: row kk and column c of the block's B tile.  A unit
-// is one 16-byte vector along B's unit-stride axis; for the transposed
-// layout two neighbouring threads read one 32-byte sector.
-template <typename T>
-__device__ __forceinline__ void sk_unit(int idx, bool n_fast, int& kk, int& c) {
-  constexpr int V = sk_vec<T>();
-  if (n_fast) {
-    kk = idx / (kSkTN / V);
-    c = idx % (kSkTN / V) * V;
-  } else {
-    c = idx / 2 % kSkTN;
-    kk = (idx % 2 + 2 * (idx / (2 * kSkTN))) * V;
-  }
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-// Loads A[0:4, k0:k0+rows] and B[k0:k0+rows, n0:n0+TN] into st, zero
-// outside rows < M, k < kend and n < N.
+__device__ __forceinline__ unsigned bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ unsigned bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
+
+// Elements p[j * step] for j < valid, zero beyond, packed as a 16-byte
+// vector load would have packed them (the fallback for unaligned B and the
+// ragged edge).
 template <typename T>
-__device__ __forceinline__ void sk_issue(SkStage<T>& st, const T* A, long long lda,
-                                         const T* B, long long sbk, long long sbn, int M,
-                                         int N, int n0, int k0, int kend, int rows,
-                                         bool vec_ok) {
-  constexpr int V = sk_vec<T>();
-  const bool n_fast = (sbn == 1);
-  const int units = rows * kSkTN / V;
-  const T zero = from_f32<T>(0.f);
+__device__ __forceinline__ uint4 ld_elems(const T* p, long long step, int valid) {
+  constexpr int V = 16 / (int)sizeof(T);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int idx = threadIdx.x + u * kSkNT;
-    if (idx >= units) continue;
-    int kk, c;
-    sk_unit<T>(idx, n_fast, kk, c);
-    const int k = k0 + kk, n = n0 + c;
-    const bool whole = n_fast ? (k < kend && n + V <= N) : (k + V <= kend && n < N);
-    if (vec_ok && whole) {
-      *reinterpret_cast<uint4*>(st.b[u]) =
-          __ldg(reinterpret_cast<const uint4*>(B + k * sbk + n * sbn));
+  for (int j = 0; j < V; ++j)
+    if (j < valid) {
+      const unsigned x = bits(p[j * step]);
+      if constexpr (V == 8) w[j / 2] |= x << (16 * (j % 2));
+      else w[j] = x;
+    }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A value from bits() of it, as fp32.
+template <typename T>
+__device__ __forceinline__ float from_bits(unsigned x) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(x);
+  else return __uint_as_float(x << 16);
+}
+
+// Element j of a unit, as fp32.
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& u, int j) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w[j]);
+  else return __uint_as_float(j % 2 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+}
+
+// One launch: the nc chunks of bk from k0 (base and wlbp: one; wls: all).
+struct Args {
+  const void* A;
+  long long lda;
+  const void* B;
+  long long sbk, sbn;
+  float* C;
+  int M, N, K, k0, bk, nc, vec_ok, a_vec, c_init, chained;
+};
+
+// Where one batch of loads lies: UB steps from step j of chunk c, which
+// spans [kbase, kstop) in `steps` steps.
+struct Batch {
+  int c, j, kbase, kstop, steps;
+  __device__ void enter(const Args& a, int step) {
+    const long long kc = (long long)a.k0 + (long long)c * a.bk;
+    kbase = (int)kc;
+    kstop = (int)min(kc + a.bk, (long long)a.K);
+    steps = (kstop - kbase + step - 1) / step;
+  }
+  __device__ void next(const Args& a, int step, int ub) {
+    j += ub;
+    if (j >= steps) {
+      j = 0;
+      if (++c < a.nc) enter(a, step);
+    }
+  }
+};
+
+// C = A @ B over the launch's chunks for the N tile of blockIdx.x.  Each
+// output's partial over a chunk is formed in one fixed order: each
+// thread's FMA chain over its k of the chunk, ascending from 0; then a
+// fixed xor-butterfly over the lanes that share its columns; then (row-
+// major) a fixed pairwise tree over the 8 warps.  It is then added with
+// one __fadd_rn to C (base, wlbp: c_init = 0 adds it to zero instead) or
+// to wls's accumulator, seeded from C, in chunk order.  Every schedule
+// runs this kernel with the tile that N alone chooses, so all three make
+// the same sums.
+template <int LN, typename T>
+__global__ void __launch_bounds__(NT, 2) decode_kernel(Args a) {
+  using D = Dec<LN, T>;
+  constexpr bool KF = D::KF;
+  constexpr int V = D::V, STEP = D::STEP, UB = D::UB, NL = D::NL, TN = D::TN, OUT = D::OUT;
+  // lanes l and l ^ x share their columns for x = LW, 2 LW, ... < 32
+  constexpr int PC = D::PC, LW = KF ? 1 : LN;
+  __shared__ float red[KF ? 1 : 2 * kWarps * OUT];  // row-major: [chunk % 2][warp][OUT]
+  tc::let_next_start();
+  const T* A = static_cast<const T*>(a.A);
+  const T* B = static_cast<const T*>(a.B);
+  const int n0 = blockIdx.x * TN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Whole 16-byte units everywhere (uniform per CTA): plain loads, zero
+  // beyond the chunk; else element loads masked by N and the chunk.
+  const bool fast = a.vec_ok && n0 + TN <= a.N;
+  // row-major: thread row r = t / LN of each step, LN threads covering the
+  // tile's units of a row; k-fast: lane l takes k l * V .. + V of each
+  // step, for the warp's kCols columns
+  const int r = KF ? lane * V : threadIdx.x / LW;
+  const int n = KF ? n0 + warp * kCols : n0 + threadIdx.x % LW * V;
+  const int cols = KF ? 0 : min(V, a.N - n);
+  // the output this thread adds up: row-major, t < OUT; k-fast, lane < 16
+  // of each warp (m = lane / kCols)
+  const int om = KF ? lane / kCols : threadIdx.x / TN;
+  const int on = KF ? n + lane % kCols : n0 + threadIdx.x % TN;
+  const bool mine = KF ? lane < 4 * kCols : threadIdx.x < OUT;
+
+  // One batch in registers: B's units and (row-major) the bits of the four
+  // rows of A at each unit's k.  A is small and read by every CTA: it
+  // comes from L2.  k-fast A (a lane's V k of each row, shared by its four
+  // columns) is loaded when its batch is summed, to stay under 128
+  // registers.
+  struct Regs {
+    uint4 b[NL];
+    unsigned ar[KF ? 1 : UB][4];
+  };
+  auto fetch = [&](Regs& x, const Batch& bt) {
+    if (bt.c >= a.nc) return;
+    const int k0 = bt.kbase + bt.j * STEP + r;
+    if constexpr (!KF) {
+      const long long qs = (long long)STEP * a.sbk;
+      const T* q = B + (long long)k0 * a.sbk + n;
+#pragma unroll
+      for (int u = 0; u < UB; ++u) {
+        const int k = k0 + u * STEP;
+        const bool in = k < bt.kstop;
+        if (fast) x.b[u] = in ? ld_stream(q + u * qs) : make_uint4(0u, 0u, 0u, 0u);
+        else x.b[u] = ld_elems(q + u * qs, 1, in ? cols : 0);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          x.ar[u][m] = 0u;  // a predicated load: nothing waits for it here
+          if (in && m < a.M) x.ar[u][m] = bits(A[(long long)m * a.lda + k]);
+        }
+      }
     } else {
+      const T* q = B + (long long)k0 * a.sbk + (long long)n * a.sbn;
+      const int valid = max(0, min(V, bt.kstop - k0));
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int kj = n_fast ? k : k + j, nj = n_fast ? n + j : n;
-        st.b[u][j] = (kj < kend && nj < N) ? B[kj * sbk + nj * sbn] : zero;
+      for (int c = 0; c < kCols; ++c) {
+        if (fast) x.b[c] = valid ? ld_stream(q + c * a.sbn) : make_uint4(0u, 0u, 0u, 0u);
+        else x.b[c] = ld_elems(q + c * a.sbn, a.sbk, n + c < a.N ? valid : 0);
       }
     }
-  }
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int idx = threadIdx.x + u * kSkNT;
-    const int m = idx / rows, k = k0 + idx % rows;
-    st.a[u] = (idx < rows * kSkTM && m < M && k < kend)
-                  ? to_f32(A[(long long)m * lda + k]) : 0.f;
-  }
-}
+  };
 
-// st -> As[kk * 4 + m] (a float4 of the 4 rows per k) and Bs[kk * pitch + c].
-template <typename T>
-__device__ __forceinline__ void sk_commit(const SkStage<T>& st, float* As, T* Bs,
-                                          int rows, bool n_fast) {
-  constexpr int V = sk_vec<T>(), P = sk_pitch<T>();
-  const int units = rows * kSkTN / V;
+  float acc = 0.f, p[4][PC];
 #pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int idx = threadIdx.x + u * kSkNT;
-    if (idx >= units) continue;
-    int kk, c;
-    sk_unit<T>(idx, n_fast, kk, c);
-    if (n_fast) {
-      *reinterpret_cast<uint4*>(Bs + kk * P + c) = *reinterpret_cast<const uint4*>(st.b[u]);
-    } else {
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int j = 0; j < V; ++j) Bs[(kk + j) * P + c] = st.b[u][j];
+    for (int e = 0; e < PC; ++e) p[m][e] = 0.f;
+  // v: chunk c's partial of this thread's output, in chunk order into acc,
+  // which the first chunk seeds from C (once the previous kernel on the
+  // stream has finished, for a chained chunk) or from zero
+  auto add = [&](float v, int c) {
+    if (c == 0) {
+      if (a.chained) tc::wait_for_previous();
+      acc = a.c_init && om < a.M && on < a.N ? a.C[(long long)om * a.N + on] : 0.f;
     }
-  }
+    acc = __fadd_rn(acc, v);
+  };
+
+  Batch bi{0, 0, 0, 0, 0}, bc{0, 0, 0, 0, 0};  // the next batch to fetch; to sum
+  bi.enter(a, STEP);
+  bc.enter(a, STEP);
+  Regs xc, xn;
+  fetch(xc, bi);
+  bi.next(a, STEP, UB);
+  while (bc.c < a.nc) {
+    fetch(xn, bi);  // in flight while this batch is summed
+    bi.next(a, STEP, UB);
+    if constexpr (!KF) {
 #pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int idx = threadIdx.x + u * kSkNT;
-    if (idx < rows * kSkTM) As[(idx % rows) * kSkTM + idx / rows] = st.a[u];
+      for (int u = 0; u < UB; ++u) {
+        if (bc.j + u >= bc.steps) break;
+#pragma unroll
+        for (int e = 0; e < PC; ++e) {
+          const float b = elem<T>(xc.b[u], e);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) p[m][e] = __fmaf_rn(from_bits<T>(xc.ar[u][m]), b, p[m][e]);
+        }
+      }
+    } else {
+      const int k0 = bc.kbase + bc.j * STEP + r;
+      const int valid = max(0, min(V, bc.kstop - k0));
+      uint4 ak[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const T* am = A + (long long)m * a.lda + k0;
+        const int mv = m < a.M ? valid : 0;
+        ak[m] = mv == V && a.a_vec ? *reinterpret_cast<const uint4*>(am) : ld_elems(am, 1, mv);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float av[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) av[m] = elem<T>(ak[m], e);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float b = elem<T>(xc.b[c], e);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) p[m][c] = __fmaf_rn(av[m], b, p[m][c]);
+        }
+      }
+    }
+    if (bc.j + UB >= bc.steps) {  // chunk c's partials are whole
+      const int c = bc.c;
+      float* dst = KF ? nullptr : red + (c % 2 * kWarps + warp) * OUT + lane * V;
+      float own = 0.f;  // k-fast: this lane's output's partial
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int e = 0; e < PC; ++e) {
+          float v = p[m][e];
+          p[m][e] = 0.f;
+#pragma unroll
+          for (int x = LW; x < 32; x *= 2) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, x));
+          if constexpr (KF) {
+            if (lane == m * kCols + e) own = v;
+          } else {
+            if (lane < LW) dst[m * TN + e] = v;
+          }
+        }
+      if constexpr (KF) {
+        if (mine) add(own, c);
+      } else {  // a fixed pairwise tree over the warps
+        __syncthreads();
+        if (mine) {
+          float v[kWarps];
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v[w] = red[(c % 2 * kWarps + w) * OUT + threadIdx.x];
+#pragma unroll
+          for (int s = 1; s < kWarps; s *= 2)
+#pragma unroll
+            for (int w = 0; w + s < kWarps; w += 2 * s) v[w] = __fadd_rn(v[w], v[w + s]);
+          add(v[0], c);
+        }
+      }
+    }
+    bc.next(a, STEP, UB);
+    xc = xn;
   }
+  if (mine && om < a.M && on < a.N) a.C[(long long)om * a.N + on] = acc;
 }
 
-// The decode path's shared routine, on a committed chunk: the partial of
-// output (t / TN, n0 + t % TN), returned in thread t < TM * TN.  Group w
-// runs the FMA chain over its piece of the chunk; the kSkS pieces' sums are
-// added in a fixed pairwise tree.
-template <typename T>
-__device__ __forceinline__ float sk_partial(const float* As, const T* Bs, float* red,
-                                            int rows) {
-  const int c = threadIdx.x % kSkTN, w = threadIdx.x / kSkTN, len = rows / kSkS;
-  float p[kSkTM] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-  for (int kk = w * len; kk < (w + 1) * len; ++kk) {
-    const float4 a = reinterpret_cast<const float4*>(As)[kk];
-    const float b = to_f32(Bs[kk * sk_pitch<T>() + c]);
-    p[0] = __fmaf_rn(a.x, b, p[0]);
-    p[1] = __fmaf_rn(a.y, b, p[1]);
-    p[2] = __fmaf_rn(a.z, b, p[2]);
-    p[3] = __fmaf_rn(a.w, b, p[3]);
-  }
-#pragma unroll
-  for (int m = 0; m < kSkTM; ++m) red[(w * kSkTM + m) * kSkTN + c] = p[m];
-  __syncthreads();
-  float v[kSkS];
-  v[0] = 0.f;
-  if (threadIdx.x < kSkTM * kSkTN) {
-#pragma unroll
-    for (int s = 0; s < kSkS; ++s) v[s] = red[s * kSkTM * kSkTN + threadIdx.x];
-#pragma unroll
-    for (int step = 1; step < kSkS; step *= 2)
-#pragma unroll
-      for (int i = 0; i + step < kSkS; i += 2 * step) v[i] = __fadd_rn(v[i], v[i + step]);
-  }
-  return v[0];
-}
-
-// Shared-memory carve-up: A (float4 per k), the B block, the pieces' sums.
-template <typename T>
-struct SkSmem {
-  float* As;
-  T* Bs;
-  float* red;
-  __device__ SkSmem(unsigned char* smem, int rows)
-      : As(reinterpret_cast<float*>(smem)),
-        Bs(reinterpret_cast<T*>(smem + rows * 16)),
-        red(reinterpret_cast<float*>(smem + rows * 16 + rows * sk_pitch<T>() * sizeof(T))) {}
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kSkNT)
-sk_chunk_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
-                float* Cm, int M, int N, int K, int k0, int bk, int vec_ok) {
-  extern __shared__ __align__(16) unsigned char sk_smem[];
-  const int rows = sk_rows(bk), n0 = blockIdx.x * kSkTN;
-  SkSmem<T> sm(sk_smem, rows);
-  SkStage<T> st;
-  sk_issue(st, A, lda, B, sbk, sbn, M, N, n0, k0, min(k0 + bk, K), rows, vec_ok);
-  sk_commit(st, sm.As, sm.Bs, rows, sbn == 1);
-  __syncthreads();
-  const float part = sk_partial(sm.As, sm.Bs, sm.red, rows);
-  const int m = threadIdx.x / kSkTN, n = n0 + threadIdx.x % kSkTN;
-  if (threadIdx.x < kSkTM * kSkTN && m < M && n < N) {
-    float* c = Cm + (long long)m * N + n;
-    *c = __fadd_rn(*c, part);  // C is updated in place
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kSkNT)
-sk_wls_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
-              float* Cm, int M, int N, int K, int bk, int vec_ok) {
-  extern __shared__ __align__(16) unsigned char sk_smem[];
-  const int rows = sk_rows(bk), n0 = blockIdx.x * kSkTN;
-  SkSmem<T> sm(sk_smem, rows);
-  const int m = threadIdx.x / kSkTN, n = n0 + threadIdx.x % kSkTN;
-  const bool mine = threadIdx.x < kSkTM * kSkTN && m < M && n < N;
-  float acc = mine ? Cm[(long long)m * N + n] : 0.f;
-  SkStage<T> st;
-  sk_issue(st, A, lda, B, sbk, sbn, M, N, n0, 0, min(bk, K), rows, vec_ok);
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    // the previous chunk's reads of As/Bs ended at sk_partial's barrier
-    sk_commit(st, sm.As, sm.Bs, rows, sbn == 1);
-    __syncthreads();
-    if (k0 + bk < K)  // the next chunk's loads fly while this one is summed
-      sk_issue(st, A, lda, B, sbk, sbn, M, N, n0, k0 + bk, min(k0 + 2 * bk, K), rows,
-               vec_ok);
-    acc = __fadd_rn(acc, sk_partial(sm.As, sm.Bs, sm.red, rows));
-  }
-  if (mine) Cm[(long long)m * N + n] = acc;
-}
+}  // namespace dec
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel.
 template <typename K>
@@ -1060,50 +1155,10 @@ cudaError_t allow_smem(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <class C, typename T>
-int ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sbk,
-             long long sbn, float* c, int M, int N, int K, int k0, int bk,
-             cudaStream_t stream) {
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  const int nt = (N + C::TN - 1) / C::TN;
-  if (wlbp) {
-    // the block holds the chunk's real depth, as wlbp_chunk_kernel reads it
-    const int depth = (long long)k0 + bk < K ? bk : K - k0;
-    const int rows = (depth + C::KT - 1) / C::KT * C::KT;
-    const int smem = C::KT * C::LDA * 4 + rows * C::LDB * (int)sizeof(T);
-    auto kernel = wlbp_chunk_kernel<C, T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<nt, C::NT, smem, stream>>>(A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
-  } else {
-    const int smem = staged_smem_bytes<C>();
-    auto kernel = base_chunk_kernel<C, T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(nt, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
-        A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class C, typename T>
-int wls(const void* a, long long lda, const void* b, long long sbk, long long sbn,
-        float* c, int M, int N, int K, int bk, cudaStream_t stream) {
-  const int smem = staged_smem_bytes<C>();
-  auto kernel = wls_kernel<C, T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((N + C::TN - 1) / C::TN, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
-      static_cast<const T*>(a), lda, static_cast<const T*>(b), sbk, sbn, c, M, N, K, bk);
-  return (int)cudaGetLastError();
-}
-
-
-namespace tc {
-
 // Launches kernel with the given cluster size (0: none) and, with overlap,
 // the programmatic dependent launch attribute; returns the launch's error.
+// Both the tensor-core path and the decode path launch through it; the two
+// attributes launch together (tc::wlbp_kernel's chained chunks use both).
 // A refused launch (shared memory, cluster) returns its error: there is no
 // other path.  The kernel's attributes are set again only for a larger
 // launch or another device (a launch costs the host a few microseconds,
@@ -1152,6 +1207,48 @@ int launch_ex(dim3 grid, int threads, int smem, cudaStream_t stream, int cluster
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
+
+template <class C, typename T>
+int ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sbk,
+             long long sbn, float* c, int M, int N, int K, int k0, int bk,
+             cudaStream_t stream) {
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+  const int nt = (N + C::TN - 1) / C::TN;
+  if (wlbp) {
+    // the block holds the chunk's real depth, as wlbp_chunk_kernel reads it
+    const int depth = (long long)k0 + bk < K ? bk : K - k0;
+    const int rows = (depth + C::KT - 1) / C::KT * C::KT;
+    const int smem = C::KT * C::LDA * 4 + rows * C::LDB * (int)sizeof(T);
+    auto kernel = wlbp_chunk_kernel<C, T>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<nt, C::NT, smem, stream>>>(A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
+  } else {
+    const int smem = staged_smem_bytes<C>();
+    auto kernel = base_chunk_kernel<C, T>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(nt, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
+        A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class C, typename T>
+int wls(const void* a, long long lda, const void* b, long long sbk, long long sbn,
+        float* c, int M, int N, int K, int bk, cudaStream_t stream) {
+  const int smem = staged_smem_bytes<C>();
+  auto kernel = wls_kernel<C, T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((N + C::TN - 1) / C::TN, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
+      static_cast<const T*>(a), lda, static_cast<const T*>(b), sbk, sbn, c, M, N, K, bk);
+  return (int)cudaGetLastError();
+}
+
+
+namespace tc {
 
 // 128-row tiles, unless they would give fewer CTAs than three quarters of
 // the SMs (qwen3-1.7b's N = 1024 GEMMs at M = 512: 64 CTAs, against 128
@@ -1213,38 +1310,76 @@ int launch_wls(const void* a, long long lda, const void* b, long long sbk, long 
 }  // namespace tc
 
 
-// 16-byte vector loads of B need an aligned base, strides that keep every
-// vector aligned along the unit-stride axis, and (along k) chunk starts on
-// a vector boundary.
-template <typename T>
-int sk_vec_ok(const void* b, long long sbk, long long sbn, int bk) {
-  const long long V = sk_vec<T>();
-  if (reinterpret_cast<unsigned long long>(b) % 16 != 0) return 0;
-  return sbn == 1 ? sbk % V == 0 : (sbk == 1 && sbn % V == 0 && bk % V == 0);
+namespace dec {
+
+int sm_count() {
+  static int sms = 0, set_device = -1;
+  int device = 0;
+  if (cudaGetDevice(&device) == cudaSuccess && device != set_device &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) == cudaSuccess)
+    set_device = device;
+  return sms;
 }
 
+// 16-byte loads of B need an aligned base and strides that keep every unit
+// aligned; k-fast units also need chunk starts and K on a unit boundary.
 template <typename T>
-int sk_launch(int wls_all, const void* a, long long lda, const void* b, long long sbk,
-              long long sbn, float* c, int M, int N, int K, int k0, int bk,
-              cudaStream_t stream) {
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  if (sk_rows(bk) > kSkMaxRows) return (int)cudaErrorInvalidValue;
-  const int smem = sk_smem_bytes<T>(bk), grid = (N + kSkTN - 1) / kSkTN;
-  const int vec_ok = sk_vec_ok<T>(b, sbk, sbn, bk);
-  if (wls_all) {
-    cudaError_t err = allow_smem(sk_wls_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    sk_wls_kernel<T><<<grid, kSkNT, smem, stream>>>(A, lda, B, sbk, sbn, c, M, N, K, bk,
-                                                     vec_ok);
-  } else {
-    cudaError_t err = allow_smem(sk_chunk_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    sk_chunk_kernel<T><<<grid, kSkNT, smem, stream>>>(A, lda, B, sbk, sbn, c, M, N, K, k0,
-                                                       bk, vec_ok);
-  }
-  return (int)cudaGetLastError();
+int vec_ok(bool kf, const void* b, long long sbk, long long sbn, int K, int bk) {
+  constexpr long long V = 16 / (long long)sizeof(T);
+  if (reinterpret_cast<unsigned long long>(b) % 16 != 0) return 0;
+  return kf ? (sbk == 1 && sbn % V == 0 && bk % V == 0 && K % V == 0) : sbk % V == 0;
 }
+
+// A's runs of 16 bytes along k are whole units when A, its row stride and
+// every chunk start are aligned to them.
+template <typename T>
+int a_vec(const void* a, long long lda, int bk) {
+  constexpr long long V = 16 / (long long)sizeof(T);
+  return reinterpret_cast<unsigned long long>(a) % 16 == 0 && lda % V == 0 && bk % V == 0;
+}
+
+// One decode launch: the chunk at k0 (base, wlbp: each chunk after the
+// first chained to the one before by programmatic dependent launch, so
+// that it runs while that one drains; its first may read an A that the
+// kernel before it is still writing), or every chunk (wls).
+template <int LN, typename T>
+int launch(const void* a, long long lda, const void* b, long long sbk, long long sbn, float* c,
+           int M, int N, int K, int k0, int bk, int wls_all, int c_init, cudaStream_t stream) {
+  using D = Dec<LN, T>;
+  const int tiles = (int)(((long long)N + D::TN - 1) / D::TN);
+  const int nc = wls_all ? (int)(((long long)K + bk - 1) / bk) : 1;
+  const int chained = !wls_all && k0 > 0;
+  const Args args{a, lda, b, sbk, sbn, c, M, N, K, k0, bk, nc,
+                  vec_ok<T>(D::KF, b, sbk, sbn, K, bk), a_vec<T>(a, lda, bk), c_init, chained};
+  return launch_ex<decode_kernel<LN, T>>(dim3(tiles), NT, 0, stream, 0, chained, args);
+}
+
+// The M <= 4 entry point.  Row-major B takes the widest tile that still
+// gives about one CTA an SM (no chunk is split across CTAs: its partial is
+// the tile's own); any other strides the k-fast tile.  The tile depends on
+// N (and the SM count) alone, as the schedules' bit-identity needs.
+template <typename T>
+int entry_t(const void* a, long long lda, const void* b, long long sbk, long long sbn,
+            float* c, int M, int N, int K, int k0, int bk, int wls_all, int c_init,
+            cudaStream_t s) {
+  if (sbn != 1)
+    return launch<0, T>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+  const long long V = 16 / (long long)sizeof(T), want = 9LL * sm_count();
+  const auto wide = [&](long long ln) { return 10 * (((long long)N + ln * V - 1) / (ln * V)) >= want; };
+  if (wide(8)) return launch<8, T>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+  if (wide(4)) return launch<4, T>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+  if (wide(2)) return launch<2, T>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+  return launch<1, T>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+}
+
+int entry(int bf16, const void* a, long long lda, const void* b, long long sbk, long long sbn,
+          float* c, int M, int N, int K, int k0, int bk, int wls_all, int c_init,
+          cudaStream_t s) {
+  return bf16 ? entry_t<__nv_bfloat16>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s)
+              : entry_t<float>(a, lda, b, sbk, sbn, c, M, N, K, k0, bk, wls_all, c_init, s);
+}
+
+}  // namespace dec
 
 }  // namespace
 
@@ -1253,25 +1388,24 @@ extern "C" {
 // One k-chunk [k0, k0 + bk) of C += A @ B for the base (wlbp = 0) or wlbp
 // (wlbp = 1) schedule.  A: [M, K] bf16 (bf16 = 1) or f32, row stride lda,
 // unit k stride.  B: [K, N] with strides (sbk, sbn).  C: [M, N] f32,
-// contiguous, updated in place.  Returns cudaGetLastError() after launch.
+// contiguous, updated in place; at M <= 4, c_init = 0 says that C holds
+// nothing yet and the chunk's sum is added to zero instead (M > 4 always
+// reads C).  Returns the launch's error.
 int rasa_ws_chunk(int wlbp, int bf16, const void* a, long long lda, const void* b,
                   long long sbk, long long sbn, float* c, int M, int N, int K, int k0,
-                  int bk, void* stream) {
+                  int bk, int c_init, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= kSkTM)
-    return bf16 ? sk_launch<__nv_bfloat16>(0, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
-                : sk_launch<float>(0, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
+  if (M <= 4) return dec::entry(bf16, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, 0, c_init, s);
   return bf16 ? tc::launch_ws_chunk(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
               : ws_chunk<kSquare, float>(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
 }
 
-// All of C += A @ B, output-stationary, k-chunks of bk (same layouts).
+// All of C += A @ B, output-stationary, k-chunks of bk (same layouts and
+// c_init).
 int rasa_wls(int bf16, const void* a, long long lda, const void* b, long long sbk,
-             long long sbn, float* c, int M, int N, int K, int bk, void* stream) {
+             long long sbn, float* c, int M, int N, int K, int bk, int c_init, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= kSkTM)
-    return bf16 ? sk_launch<__nv_bfloat16>(1, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, s)
-                : sk_launch<float>(1, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, s);
+  if (M <= 4) return dec::entry(bf16, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, 1, c_init, s);
   return bf16 ? tc::launch_wls(a, lda, b, sbk, sbn, c, M, N, K, bk, s)
               : wls<kSquare, float>(a, lda, b, sbk, sbn, c, M, N, K, bk, s);
 }

@@ -133,9 +133,9 @@ def _lib():
     lib = _build.load("rasa_gemm")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.rasa_ws_chunk.argtypes = [i, i, p, ll, p, ll, ll, p, i, i, i, i, i, p]
+        lib.rasa_ws_chunk.argtypes = [i, i, p, ll, p, ll, ll, p, i, i, i, i, i, i, p]
         lib.rasa_ws_chunk.restype = i
-        lib.rasa_wls.argtypes = [i, p, ll, p, ll, ll, p, i, i, i, i, p]
+        lib.rasa_wls.argtypes = [i, p, ll, p, ll, ll, p, i, i, i, i, i, p]
         lib.rasa_wls.restype = i
         lib.rasa_error_string.argtypes = [i]
         lib.rasa_error_string.restype = ctypes.c_char_p
@@ -169,10 +169,14 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
         raise ValueError(f"a must be unit-stride along K, got strides {a.stride()}")
     if max(m, n, k) >= 2**31:
         raise ValueError(f"dims too large for int32 indexing: {(m, k, n)}")
-    # the wrapper owns C: a fresh f32 buffer the kernels update in place
-    out = (torch.zeros((m, n), dtype=torch.float32, device=a.device)
-           if c is None else c.to(torch.float32, memory_format=torch.contiguous_format,
-                                   copy=True))
+    # the wrapper owns C: a fresh f32 buffer the kernels update in place.
+    # With no c and M <= 4 it stays unfilled: the decode kernels add their
+    # first sum to zero instead of reading it (c_init 0).
+    fresh = c is None and m <= 4 and k > 0
+    out = (c.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+           if c is not None else
+           (torch.empty if fresh else torch.zeros)((m, n), dtype=torch.float32,
+                                                   device=a.device))
     if m == 0 or n == 0 or k == 0:
         return out.to(out_dtype)
     lib = _lib()
@@ -180,13 +184,14 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     args = (_DTYPES[a.dtype], a.data_ptr(), a.stride(0), b.data_ptr(),
             b.stride(0), b.stride(1), out.data_ptr(), m, n, k)
     if schedule == "wls":
-        _build.raise_if(lib.rasa_wls(*args, blocks.bk, stream), lib.rasa_error_string,
-                        "rasa_wls launch")
+        _build.raise_if(lib.rasa_wls(*args, blocks.bk, int(not fresh), stream),
+                        lib.rasa_error_string, "rasa_wls launch")
         launches["wls"] += 1
     else:
         wlbp, what = int(schedule == "wlbp"), f"rasa_ws_chunk<{schedule}> launch"
         for k0 in range(0, k, blocks.bk):
-            _build.raise_if(lib.rasa_ws_chunk(wlbp, *args, k0, blocks.bk, stream),
+            _build.raise_if(lib.rasa_ws_chunk(wlbp, *args, k0, blocks.bk,
+                                              int(not fresh or k0 > 0), stream),
                             lib.rasa_error_string, what)
             launches[schedule] += 1
     return out.to(out_dtype)

@@ -31,7 +31,10 @@ def rel_err(got, want):
 # M 5 to 2048, K and N not multiples of 8, a bk not a multiple of 16 and a
 # bk larger than K, and A rows that are not 16-byte aligned.  The last case
 # is a bk deeper than the f32 wlbp block can hold, over a K that it can:
-# the block is sized by the chunk's real depth.
+# the block is sized by the chunk's real depth.  The four after it are the
+# decode path (M <= 4) at depths it once refused: bk 2048 over K 700 and
+# K 2500 (embedding.T, a ragged second chunk), bk 1280, and the down
+# projection's K 6144 with A a column slice.
 GEMM_CASES = [
     ((1, 256, 256), 128, True, True, 0),
     ((257, 130, 100), 128, True, True, 0),
@@ -46,6 +49,10 @@ GEMM_CASES = [
     ((130, 300, 200), 100, False, True, 3),
     ((512, 1000, 515), 512, True, True, 1),
     ((64, 700, 300), 2048, False, True, 0),
+    ((4, 700, 300), 2048, False, False, 0),
+    ((3, 2500, 515), 2048, True, True, 0),
+    ((1, 1500, 1000), 1280, False, False, 0),
+    ((2, 6144, 2048), 512, False, True, 3),
 ]
 
 

@@ -107,6 +107,32 @@ def test_strided_b_and_out_dtype():
     assert torch.equal(got, want.to(torch.bfloat16))
 
 
+# The decode path's shapes (M <= 4): bk deeper than K and than 1024, a
+# ragged last chunk, a column slice of A, and B row-major or read in place
+# as embedding.T (k-fast).  The CUDA kernels meet the same cases on the card
+# (test_torch_cuda.py).
+DECODE_CASES = [((4, 700, 300), 2048, False, 0), ((3, 2500, 515), 2048, True, 0),
+                ((1, 1500, 1000), 1280, False, 0), ((2, 6144, 2048), 512, True, 3)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("b_kfast", [False, True])
+@pytest.mark.parametrize("shape,bk,with_c,a_offset", DECODE_CASES)
+def test_decode_shapes_match_reference(shape, bk, with_c, a_offset, b_kfast, schedule):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    a = rng.normal(size=(m, k + a_offset)).astype(jnp.bfloat16)
+    b = rng.normal(size=(n, k) if b_kfast else (k, n)).astype(jnp.bfloat16)
+    c = rng.normal(size=(m, n)).astype(np.float32) if with_c else None
+    tb = to_torch(b).T if b_kfast else to_torch(b)
+    got = rasa_matmul(to_torch(a)[:, a_offset:], tb, None if c is None else to_torch(c),
+                      schedule=schedule, blocks=GemmBlocks(128, bk, 128))
+    want = j_rasa_matmul(a[:, a_offset:], b.T if b_kfast else b, c, schedule=schedule,
+                         blocks=JGemmBlocks(128, bk, 512))
+    assert got.shape == (m, n)
+    assert rel_err(got.numpy(), want) < 1e-5
+
+
 @pytest.mark.parametrize("shape", [(8192, 8192, 8192), (128, 128, 128),
                                    (100000, 64, 64), (4, 2048, 151936),
                                    (512, 6144, 2048)])
