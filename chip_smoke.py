@@ -29,7 +29,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      GEMMs (M = 4) and, under prefill_*, one prefill (M = 512; the head
      sees M = 4).  Each decode `time gemm` row splits each schedule's
      device time by record (the GEMM kernel's, and any other, such as a
-     fill) and gives each timed call's share of the HBM rate.  Bound: the
+     fill) and gives each timed call's share of the HBM rate.  The f32
+     M > 4 path (SIMT) is timed on one qwen3-1.7b prefill of layer GEMMs in
+     f32 beside torch.matmul in f32.  Each SSD row names its device kernels'
+     launches per call (device_kernels) and splits its device time by
+     device kernel (by_record_ms).  Bound: the
      larger of the bytes over the HBM rate and the operations over the
      card's peak for the inputs' type
      (bf16 tensor cores, or fp32 outside them).  Times are the device's
@@ -45,7 +49,8 @@ Phases, each of which raises (exit code != 0) when it fails:
   7. serving mamba2-130m and zamba2-2.7b at full width (batch 4, prompt
      512, 32 steps) under pallas_rasa (wls) and xla, and the SSD path:
      ssd_chunk_fused on the SSD inputs of every mamba2-130m layer of a
-     prefill, against ssd_chunked in f32; then the SSD kernel's time on one
+     prefill, against ssd_chunked in f32, each of the f32 route's device
+     kernels launched once per layer; then the SSD kernel's time on one
      real layer's inputs, on random ones and on mixes of the two, with the
      SM clock and board power sampled while it runs.
 The line before the last is the card line, the one before it the kernels'
@@ -347,6 +352,42 @@ def time_gemm(torch, rk, cfg) -> tuple[dict, dict]:
     return step, {name: "+".join(sorted(ts)) for name, ts in timers.items()}
 
 
+def time_gemm_f32_prefill(torch, rk, cfg) -> dict:
+    """Phase 4, the GEMM's f32 M > 4 path (SIMT): one qwen3-1.7b prefill of
+    layer GEMMs (M = batch * prompt, no head) in f32 under each schedule,
+    the plain version and torch.matmul (TF32 off, as main() sets it), by
+    time_gemm's method: each shape's device time over a distinct weight per
+    layer, times its count per forward.  Returns the sums (ms) and each
+    timed function's timer; the bound is the larger of the f32 bytes and
+    the operations at the fp32 peak."""
+    m = cfg.model
+    blocks = rk.GemmBlocks(cfg.engine.block_m, cfg.engine.block_k, cfg.engine.block_n)
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    mm = BATCH * PROMPT
+    fns = {**{s: lambda x, w, s=s: rk.rasa_gemm(x, w, schedule=s, blocks=blocks)
+              for s in rk.SCHEDULES},
+           "plain": lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks),
+           "library": torch.matmul}
+    total = dict.fromkeys((*fns, "bytes", "operations"), 0.0)
+    timers = {name: set() for name in fns}
+    for k, n, count in layer_shapes(m):
+        ws = [torch.randn(k, n, device=DEV, generator=gen) for _ in range(m.n_layers)]
+        a = torch.randn(mm, k, device=DEV, generator=gen)
+        row = {"M": mm, "K": k, "N": n, "per_forward": count, "dtype": "float32"}
+        for name, f in fns.items():
+            dev, _, timer, _ = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+            row[f"{name}_ms"] = dev / len(ws)
+            total[name] += count * dev / len(ws)
+            timers[name].add(timer)
+        row["bytes_ms"], row["operations_ms"] = gemm_bound_ms(mm, k, n, "float32")
+        total["bytes"] += count * row["bytes_ms"]
+        total["operations"] += count * row["operations_ms"]
+        print("time gemm f32 prefill " + json.dumps(row))
+        del ws, a
+    total["timer"] = {name: "+".join(sorted(ts)) for name, ts in timers.items()}
+    return total
+
+
 # -------------------------------------------------------------------- flash
 
 
@@ -475,6 +516,14 @@ def hbm_share(byte_ms: float, ms: float) -> float:
 def timed_kernels(records, names) -> list[str]:
     """Which of ``names`` appear among the device records' names."""
     return sorted(n for n in names if any(n in r for r in records))
+
+
+def kernel_split(records: dict, names, calls: int) -> dict:
+    """record_split by device kernel: each of ``names`` with its records'
+    device ms per call, and the records of none of them under "other"."""
+    out = {n: record_split(records, (n,), calls)["kernels"] for n in names}
+    out["other"] = record_split(records, names, calls)["other"]
+    return out
 
 
 def flash_row(torch, fa, flash_mha, F, what, q, k, v) -> dict:
@@ -632,19 +681,43 @@ def check_ssd(torch, sc) -> float:
     return worst
 
 
+def ssd_device_kernels(sc) -> tuple[str, ...]:
+    """The SSD's device kernels, as named in csrc/ssd_chunk.cu."""
+    return tuple(v for k, v in sc.KERNEL_NAMES.items() if k != "ssd")
+
+
 def ssd_row(torch, sc, what, x, dt, a, b, c) -> dict:
     """Kernel and plain times (device, profiler) of one call, and the bound:
     the bytes of ``hbm_bytes_fused`` and the operations over the card's peak
-    for x's type."""
+    for x's type.  device_kernels: each device kernel's launches in one call
+    (the wrapper's counts); by_record_ms: the kernel's device time per call
+    by device kernel (None where CUDA events stood in).  Raises unless the
+    traces recorded exactly the device kernels of x's route."""
     bh, s, p = x.shape
     n = b.shape[-1]
-    t, _ = timed_fields(torch, {
+    names = ssd_device_kernels(sc)
+    route = sorted(sc.KERNEL_NAMES[k] for k in sc.ROUTES[x.dtype])
+    before = dict(sc.launches)
+    sc.ssd_chunk_fused(x, dt, a, b, c, chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    launched = {sc.KERNEL_NAMES[k]: sc.launches[k] - before[k] for k in sc.KERNEL_NAMES
+                if k != "ssd"}
+    if sorted(k for k, v in launched.items() if v) != route or max(launched.values()) > 1:
+        raise AssertionError(f"ssd {what} {dtype_name(x)}: one call launched {launched}, "
+                             f"expected one each of {route}")
+    t, records = timed_fields(torch, {
         "ms": lambda: sc.ssd_chunk_fused(x, dt, a, b, c, chunk=SSD_CHUNK),
         "plain_ms": lambda: sc.ssd_chunk_plain(x, dt, a, b, c, chunk=SSD_CHUNK)})
+    ran = timed_kernels(records, names)
+    if ran != route and not (t["timer"]["ms"] == "events" and not ran):
+        raise AssertionError(f"ssd {what} {dtype_name(x)}: traces recorded {ran}, "
+                             f"expected {route}")
     byte_ms = sc.hbm_bytes_fused(bh, s, p, n, x.element_size()) / HBM_BYTES_PER_S * 1e3
     op_ms = ssd_ops(bh, s, p, n, SSD_CHUNK) / PEAK_FLOPS[dtype_name(x)] * 1e3
     return {"what": what, "BH": bh, "S": s, "P": p, "N": n, "chunk": SSD_CHUNK,
             "dtype": dtype_name(x), **t, "library_ms": None,
+            "device_kernels": launched,
+            "by_record_ms": kernel_split(records, route, 1),
             **bound_fields(byte_ms, op_ms)}
 
 
@@ -752,9 +825,14 @@ def ssd_path(torch, sc, model, prompts) -> dict:
     outs = [sc.ssd_chunk_fused(x, dt, a, b, c, chunk=chunk)
             for x, dt, a, b, c, chunk in calls]
     torch.cuda.synchronize()
-    launches = sc.launches["ssd"]
-    if launches != m.n_layers:
-        raise AssertionError(f"ssd path launched {launches}, expected {m.n_layers}")
+    counts = dict(sc.launches)
+    launches = counts["ssd"]
+    # every device kernel of the f32 route once per layer, the others never
+    route = sc.ROUTES[torch.float32]
+    expect = {k: m.n_layers if k == "ssd" or k in route else 0 for k in counts}
+    if counts != expect:
+        raise AssertionError(f"ssd path launched {counts}, expected {expect}")
+    device_kernels = {sc.KERNEL_NAMES[k]: counts[k] for k in counts if k != "ssd"}
     worst = 0.0
     for i, ((x, dt, a, b, c, chunk), got) in enumerate(zip(calls, outs)):
         # one batch row, the BH rows as heads (each its own group), on the
@@ -769,9 +847,10 @@ def ssd_path(torch, sc, model, prompts) -> dict:
                                             f"path layer {i} vs ssd_chunked"))
     x, dt, a, b, c, _ = calls[0]
     row = ssd_row(torch, sc, f"{m.name} prefill layer", x, dt, a, b, c)
-    row.update(launches=launches, max_abs_err=worst)
+    row.update(launches=launches, max_abs_err=worst, device_kernels=device_kernels)
     print(f"ssd path: {launches} launches over {m.n_layers} {m.name} prefill layers "
-          f"({tuple(x.shape)}, N={b.shape[-1]}) f32; max abs err vs ssd_chunked {worst:.3g}")
+          f"({tuple(x.shape)}, N={b.shape[-1]}) f32, by device kernel {device_kernels}; "
+          f"max abs err vs ssd_chunked {worst:.3g}")
     study = ssd_input_study(torch, sc, (x, dt, a, b, c))
     row["ms_random_inputs"] = study["random"]["ms"]
     row["timer"]["ms_random_inputs"] = study["random"]["timer"]
@@ -949,6 +1028,8 @@ def main() -> int:
         {k: v["decode"] for k, v in step.items()}))
     print("time per prefill (M=512, head M=4, ms; *_wall with launch gaps): " + json.dumps(
         {k: v["prefill"] for k, v in step.items()}))
+    gemm32 = time_gemm_f32_prefill(torch, rk, qwen)
+    print("time per prefill, f32 (M=512, layer GEMMs, ms): " + json.dumps(gemm32))
     time_flash(torch, fa, flash_mha)
     time_ssd(torch, sc)
     phase("serve qwen3-1.7b")
@@ -978,7 +1059,12 @@ def main() -> int:
             "prefill_library_ms": step["library"]["prefill"],
             "prefill_bound_ms": step[bound_by["prefill"]]["prefill"],
             "prefill_bound_by": bound_by["prefill"],
-            "prefill_work": "one qwen3-1.7b prefill of GEMMs, M=512, head M=4, bf16"})
+            "prefill_work": "one qwen3-1.7b prefill of GEMMs, M=512, head M=4, bf16",
+            "prefill_f32_ms": gemm32[s], "prefill_f32_plain_ms": gemm32["plain"],
+            "prefill_f32_library_ms": gemm32["library"],
+            "prefill_f32_bound_ms": max(gemm32["bytes"], gemm32["operations"]),
+            "prefill_f32_work": "one qwen3-1.7b prefill of layer GEMMs in f32, M=512 "
+                                "(the SIMT path; none on the serving path)"})
     for key, row, name, work in (
             ("flash", flash, fa.KERNEL_NAMES["flash"],
              "one qwen3-1.7b prefill layer's attention (B=4, 16/8 heads, S=512, D=128, bf16)"),
@@ -993,7 +1079,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"ms_random_inputs": row["ms_random_inputs"]}
                if "ms_random_inputs" in row else {}),
-            **({"device_kernels": row["device_kernels"]} if "device_kernels" in row else {}),
+            **{field: row[field] for field in ("device_kernels", "by_record_ms")
+               if field in row},
             "timer": row["timer"], "work": work})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,11 @@ computed in f32, chunk after chunk:
   state  = state exp(seg_last) + sum_j (b_j exp(seg_last - seg_j)) (x_j dt_j)^T
 
 with seg = cumsum(dt * a) within the chunk.  ``ssd_chunk_fused`` takes the
-plain version for a tensor on the CPU and the kernel for one on the card.
+plain version for a tensor on the CPU and the kernels for one on the card.
+The kernels split the chunk loop as the SSD algorithm allows: each chunk's
+own state contribution, a recurrence over the chunks, then y per (chunk,
+row tile), so no limit on the chunk; bf16 inputs take N <= 128
+(``MAX_STATE_BF16``), f32 inputs any N; any P.
 """
 
 from __future__ import annotations
@@ -24,18 +28,27 @@ import torch
 
 from . import _build
 
-MAX_HEAD_DIM = 128     # P
-MAX_STATE = 128        # N
-MAX_CHUNK = 1024
+#: N the bf16 kernel takes: it holds a row tile's C fragments in registers
+#: (csrc/ssd_chunk.cu); f32 inputs take any N, both any P and any chunk
+MAX_STATE_BF16 = 128
 
-#: the kernel, as named in csrc/ssd_chunk.cu
-KERNEL_NAMES = {"ssd": "ssd_chunk_fwd"}
-#: kernel launches, counted where the wrapper launches
-launches = {"ssd": 0}
+#: the entry point and its device kernels, as named in csrc/ssd_chunk.cu:
+#: each chunk's own state (f32 SIMT, bf16 tensor cores), the recurrence
+#: over the chunks, then y (f32 SIMT, bf16 tensor cores)
+KERNEL_NAMES = {"ssd": "ssd_chunk_fwd", "state_simt": "ssd_state_simt",
+                "state_tc": "ssd_state_tc", "pass": "ssd_state_pass",
+                "out_simt": "ssd_out_simt", "out_tc": "ssd_out_tc"}
+#: the device kernels each input dtype's route launches, once each per call
+ROUTES = {torch.float32: ("state_simt", "pass", "out_simt"),
+          torch.bfloat16: ("state_tc", "pass", "out_tc")}
+#: launches counted where the wrapper launches: "ssd" per call, and each
+#: device kernel's under its KERNEL_NAMES key
+launches = {key: 0 for key in KERNEL_NAMES}
 
 
 def reset_launches() -> None:
-    launches["ssd"] = 0
+    for key in launches:
+        launches[key] = 0
 
 
 def hbm_bytes_fused(bh: int, s: int, p: int, n: int, in_bytes: int = 2) -> int:
@@ -102,7 +115,7 @@ def _lib():
     lib = _build.load("ssd_chunk")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_chunk_fwd.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ssd_chunk_fwd.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ssd_chunk_fwd.restype = i
         lib.ssd_error_string.argtypes = [i]
         lib.ssd_error_string.restype = ctypes.c_char_p
@@ -113,11 +126,15 @@ def _lib():
 def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, *,
                    chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan through the CUDA kernel.
+    """The SSD scan through the CUDA kernels, on the current stream: each
+    chunk's own state (one CTA per chunk and 64 x 64 tile of [N, P]), the
+    recurrence over the chunks, then y (one CTA per chunk, row tile and 64
+    columns of P).  The workspace comes from torch's allocator.
 
     x/b/c bf16 or f32 (one dtype), dt f32 or x's dtype, a f32, all
-    contiguous on one CUDA device; P <= 128, N <= 128, chunk <= 1024.
-    Raises on anything else, including a tensor on the CPU.
+    contiguous on one CUDA device; any P and chunk, N <= 128 with bf16
+    inputs (any with f32).  Raises on anything else, including a tensor on
+    the CPU.
     """
     chunk = _check(x, dt, a, b, c, chunk)
     bh, s, p = x.shape
@@ -133,22 +150,32 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                         f"a {a.dtype}, b {b.dtype}, c {c.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_chunk_cuda takes contiguous tensors")
-    if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and chunk <= MAX_CHUNK):
-        raise ValueError(f"P={p}, N={n}, chunk={chunk} outside the kernel's range "
-                         f"(P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK})")
-    if bh * s * max(p, n) >= 2**31 or bh > 2**31 - 1:
+    if p < 1 or n < 1 or (x.dtype == torch.bfloat16 and n > MAX_STATE_BF16):
+        raise ValueError(f"P={p}, N={n} outside the kernel's range (P >= 1; N >= 1, "
+                         f"and N <= {MAX_STATE_BF16} with bf16 inputs, whose kernel "
+                         "holds C's fragments for all of N in registers)")
+    if bh * s * max(p, n) >= 2**31:
         raise ValueError(f"shapes too large for the kernel: x {tuple(x.shape)}")
     y = torch.empty_like(x)
     fin = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
     if bh == 0:
         return y, fin
+    # the workspace (csrc/ssd_chunk.cu, Plan): the state entering each chunk
+    # [BH, S / chunk, N, P], then seg and dt of every row, then each chunk's
+    # seg_last
+    nc = s // chunk
+    ws = torch.empty(bh * (nc * n * p + 2 * s + nc), dtype=torch.float32, device=x.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ssd_chunk_fwd(_DTYPES[x.dtype], _DTYPES[dt.dtype], x.data_ptr(),
-                            dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                            y.data_ptr(), fin.data_ptr(), bh, s, p, n, chunk, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_chunk_fwd(_DTYPES[x.dtype], _DTYPES[dt.dtype], x.data_ptr(),
+                                dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                y.data_ptr(), fin.data_ptr(), ws.data_ptr(), bh, s, p, n,
+                                chunk, stream)
     _build.raise_if(err, lib.ssd_error_string, "ssd_chunk_fwd launch")
     launches["ssd"] += 1
+    for key in ROUTES[x.dtype]:
+        launches[key] += 1
     return y, fin
 
 

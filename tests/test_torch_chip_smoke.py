@@ -63,3 +63,57 @@ def test_record_split_groups_kernel_and_other_records(records, calls, want):
                                              (2.5e-3, 1e-2, 0.25)])
 def test_hbm_share_is_bytes_time_over_time(byte_ms, ms, want):
     assert chip_smoke.hbm_share(byte_ms, ms) == pytest.approx(want)
+
+
+SSD_NAMES = ("ssd_state_simt", "ssd_state_tc", "ssd_state_pass", "ssd_out_simt", "ssd_out_tc")
+F32_RECORDS = {
+    "void (anonymous namespace)::simt::ssd_state_simt<float, true>(...)": 0.126,
+    "void (anonymous namespace)::ssd_state_pass(float*, float const*, float*, int, int, int)": 0.012,
+    "void (anonymous namespace)::simt::ssd_out_simt<true>(...)": 0.42,
+}
+BF16_RECORDS = {
+    "void (anonymous namespace)::tc::ssd_state_tc<float>(...)": 0.042,
+    "void (anonymous namespace)::ssd_state_pass(float*, float const*, float*, int, int, int)": 0.012,
+    "void (anonymous namespace)::tc::ssd_out_tc<128>(...)": 0.135,
+    "Memset (Device)": 0.003,
+}
+
+
+def test_ssd_device_kernels_are_the_kernel_names():
+    from repro_torch.kernels import ssd_chunk as sc
+    assert chip_smoke.ssd_device_kernels(sc) == SSD_NAMES
+    for route in sc.ROUTES.values():
+        assert {sc.KERNEL_NAMES[k] for k in route} <= set(SSD_NAMES)
+
+
+@pytest.mark.parametrize("records,want", [
+    (F32_RECORDS, ["ssd_out_simt", "ssd_state_pass", "ssd_state_simt"]),
+    (BF16_RECORDS, ["ssd_out_tc", "ssd_state_pass", "ssd_state_tc"]),
+])
+def test_timed_kernels_reads_ssd_record_names(records, want):
+    # no name is a part of another: ssd_out_tc is not counted in ssd_out_simt
+    assert chip_smoke.timed_kernels(records, SSD_NAMES) == want
+
+
+@pytest.mark.parametrize("records,calls,want", [
+    (F32_RECORDS, 3, {"ssd_state_simt": 0.042, "ssd_state_pass": 0.004, "ssd_out_simt": 0.14,
+                      "other": {}}),
+    (BF16_RECORDS, 3, {"ssd_state_tc": 0.014, "ssd_state_pass": 0.004, "ssd_out_tc": 0.045,
+                       "other": {"Memset (Device)": 0.001}}),
+])
+def test_kernel_split_by_ssd_device_kernel(records, calls, want):
+    names = [k for k in want if k != "other"]
+    got = chip_smoke.kernel_split(records, names, calls)
+    assert got.keys() == want.keys() and got["other"].keys() == want["other"].keys()
+    for k in names:
+        assert got[k] == pytest.approx(want[k])
+    for k, v in want["other"].items():
+        assert got["other"][k] == pytest.approx(v)
+
+
+def test_kernel_split_without_times():
+    """CUDA-event fallback: the records carry no times."""
+    got = chip_smoke.kernel_split(dict.fromkeys(F32_RECORDS), ("ssd_state_simt", "ssd_out_simt"), 1)
+    assert got == {"ssd_state_simt": None, "ssd_out_simt": None,
+                   "other": {"void (anonymous namespace)::ssd_state_pass(float*, float const*, "
+                             "float*, int, int, int)": None}}

@@ -164,31 +164,107 @@ def test_cuda_flash_rejects_bad_inputs():
         fa.flash_attention(big, big, big)
 
 
+def ssd_inputs(bh, s, p, n, dtype, dt_dtype=torch.float32, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(bh, s, p, device="cuda", generator=gen).to(dtype)
+    dt = (torch.rand(bh, s, device="cuda", generator=gen) * 0.19 + 0.01).to(dt_dtype)
+    a = -(torch.rand(bh, device="cuda", generator=gen) * 1.5 + 0.5)
+    b = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
+    c = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
+    return x, dt, a, b, c
+
+
+def ssd_check(args, chunk):
+    """The kernels against the plain version on the same CUDA tensors:
+    rtol = atol = 2e-5 in f32 (test_ssd_kernel.py:37), rel_err < 3e-2 in
+    bf16 (:55); one wrapper launch, one of each device kernel of the
+    dtype's route."""
+    x = args[0]
+    before = dict(sc.launches)
+    y, fin = sc.ssd_chunk_fused(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sc.launches["ssd"] == before["ssd"] + 1
+    for key in sc.ROUTES[x.dtype]:
+        assert sc.launches[key] == before[key] + 1
+    want_y, want_fin = sc.ssd_chunk_plain(*args, chunk=chunk)
+    assert y.dtype == x.dtype and fin.dtype == torch.float32
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(fin, want_fin, rtol=2e-5, atol=2e-5)
+    else:
+        assert rel_err(y, want_y) < 3e-2 and rel_err(fin, want_fin) < 3e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,s,p,n,chunk", [(3, 128, 16, 8, 32), (4, 512, 64, 128, 256),
                                             (8, 512, 64, 64, 256), (2, 96, 80, 100, 48)])
 def test_cuda_ssd_matches_plain(bh, s, p, n, chunk, dtype):
-    """The SSD kernel against its plain version on the same CUDA tensors:
-    rtol = atol = 2e-5 in f32 (test_ssd_kernel.py:37), rel_err < 3e-2 in
-    bf16 (:55)."""
+    """The SSD kernels against their plain version on the same CUDA tensors."""
     need_cuda()
-    gen = torch.Generator(device="cuda").manual_seed(s + n)
-    x = torch.randn(bh, s, p, device="cuda", generator=gen).to(dtype)
-    dt = torch.rand(bh, s, device="cuda", generator=gen) * 0.19 + 0.01
-    a = -(torch.rand(bh, device="cuda", generator=gen) * 1.5 + 0.5)
-    b = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
-    c = torch.randn(bh, s, n, device="cuda", generator=gen).to(dtype)
-    before = sc.launches["ssd"]
-    y, fin = sc.ssd_chunk_fused(x, dt, a, b, c, chunk=chunk)
-    torch.cuda.synchronize()
-    assert sc.launches["ssd"] == before + 1
-    want_y, want_fin = sc.ssd_chunk_plain(x, dt, a, b, c, chunk=chunk)
-    if dtype == torch.float32:
-        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
-        torch.testing.assert_close(fin, want_fin, rtol=2e-5, atol=2e-5)
-    else:
-        assert rel_err(y, want_y) < 3e-2 and rel_err(fin, want_fin) < 3e-2
+    ssd_check(ssd_inputs(bh, s, p, n, dtype, seed=s + n), chunk)
+
+
+# The new design's edges: 16 chunks (the recurrence runs long); chunks that
+# are not a multiple of the row tiles (48, 96); BH 1; the mamba2-130m and
+# zamba2-2.7b layers' full shapes at S 1024 (batch 4); chunk 2048 (once
+# refused: the chunk is no longer held in shared memory); P past 128 and
+# P not a multiple of 64; N and P that no 16-byte copy takes (the kernels'
+# element-load builds).  N past 128 (f32 only) is below.
+SSD_EDGE_CASES = [
+    (3, 2048, 64, 128, 128), (4, 192, 64, 64, 48), (4, 384, 64, 128, 96),
+    (1, 512, 64, 128, 256), (96, 1024, 64, 128, 256), (320, 1024, 64, 64, 256),
+    (2, 4096, 64, 128, 2048), (2, 256, 160, 64, 128), (2, 256, 200, 40, 64),
+    (2, 128, 18, 13, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n,chunk", SSD_EDGE_CASES)
+def test_cuda_ssd_edges_match_plain(bh, s, p, n, chunk, dtype):
+    need_cuda()
+    ssd_check(ssd_inputs(bh, s, p, n, dtype, seed=bh + s + p + n), chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,p,n,chunk", [(2, 256, 64, 200, 128), (3, 96, 16, 160, 32)])
+def test_cuda_ssd_f32_takes_wide_state(bh, s, p, n, chunk):
+    """N past 128: the f32 kernels stream C and B in k-chunks."""
+    need_cuda()
+    ssd_check(ssd_inputs(bh, s, p, n, torch.float32, seed=n), chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,p,n,chunk", [(4, 512, 64, 128, 256), (2, 96, 80, 100, 48)])
+def test_cuda_ssd_bf16_dt(bh, s, p, n, chunk):
+    """dt in bf16 beside bf16 x/b/c."""
+    need_cuda()
+    ssd_check(ssd_inputs(bh, s, p, n, torch.bfloat16, torch.bfloat16, seed=p), chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_device_kernels_ran():
+    """Every device kernel of KERNEL_NAMES shows in a profiler trace of one
+    f32 and one bf16 call (a warm-up step first: the tracer can drop the
+    first records of a trace)."""
+    need_cuda()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    calls = [ssd_inputs(4, 512, 64, 128, dtype) for dtype in (torch.float32, torch.bfloat16)]
+    devices = [v for k, v in sc.KERNEL_NAMES.items() if k != "ssd"]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for args in calls:
+                    sc.ssd_chunk_fused(*args, chunk=256)
+                torch.cuda.synchronize()
+                prof.step()
+        names = {e.key for e in prof.key_averages()}
+        ran = [d for d in devices if any(d in name for name in names)]
+        if ran == devices:
+            break
+    assert ran == devices
 
 
 @pytest.mark.cuda
@@ -200,3 +276,6 @@ def test_cuda_ssd_rejects_bad_inputs():
         sc.ssd_chunk_cuda(x, dt, a, x.to(torch.bfloat16), x, chunk=32)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         sc.ssd_chunk_cuda(x, dt, a, x, x, chunk=48)
+    wide = torch.zeros(2, 64, 160, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N <= 128"):
+        sc.ssd_chunk_cuda(x.to(torch.bfloat16), dt, a, wide, wide, chunk=32)

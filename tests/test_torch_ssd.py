@@ -60,6 +60,26 @@ def test_fused_matches_reference_bf16(dt_dtype):
     assert rel_err(to_np(fin), want_fin) < 3e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,chunk", [((2, 512, 16, 8), 32), ((2, 96, 16, 8), 48)],
+                         ids=["16-chunks", "chunk-48"])
+def test_fused_edges_match_reference(shape, chunk, dtype):
+    """The CUDA design's edges, on the plain version: sixteen chunks (the
+    recurrence over the chunks runs long) and a chunk that is no multiple
+    of the kernels' 64-row tiles, at the reference's tolerances."""
+    rng = np.random.default_rng(shape[1] + chunk)
+    args = fused_inputs(rng, *shape, dtype)
+    y, fin = ssd_chunk_fused(*map(to_torch, args), chunk=chunk)
+    want_y, want_fin = j_ssd_chunk_fused(*map(jnp.asarray, args), chunk=chunk,
+                                         interpret=True)
+    if dtype == "float32":
+        np.testing.assert_allclose(to_np(y), np.asarray(want_y), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(to_np(fin), np.asarray(want_fin), rtol=2e-5, atol=2e-5)
+    else:
+        assert rel_err(to_np(y), want_y) < 3e-2
+        assert rel_err(to_np(fin), want_fin) < 3e-2
+
+
 def test_fused_matches_chunked_oracle():
     """The fused scan against the port's own ssd_chunked run per head, as the
     reference's _oracle does (tests/test_ssd_kernel.py:12-21)."""
