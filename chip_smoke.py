@@ -10,7 +10,9 @@ Phases, each of which raises (exit code != 0) when it fails:
   3. every kernel against its plain PyTorch version, on the card:
      the RASA GEMM at the GEMM shapes of qwen3-1.7b, mamba2-130m and
      zamba2-2.7b (tied heads through embedding.T) and at ragged shapes, bf16
-     and f32, with and without C: rel_err < 1e-5, schedules bit-identical;
+     and f32, and at f32-only M > 4 shapes of the SIMT kernels (wlbp chunks
+     2048 and 3072 deep, M 300 across a cluster, A a column slice), with
+     and without C: rel_err < 1e-5, schedules bit-identical;
      flash attention through flash_mha at the head layouts of qwen3-1.7b,
      zamba2-2.7b and gemma-2b, S in {128, 257, 4096}, batch 4: rel_err
      < 2e-2 in bf16, < 1e-5 in f32, over the whole output and over the
@@ -31,9 +33,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      device time by record (the GEMM kernel's, and any other, such as a
      fill) and gives each timed call's share of the HBM rate.  The f32
      M > 4 path (SIMT) is timed on one qwen3-1.7b prefill of layer GEMMs in
-     f32 beside torch.matmul in f32.  Each SSD row names its device kernels'
-     launches per call (device_kernels) and splits its device time by
-     device kernel (by_record_ms).  Bound: the
+     f32 beside torch.matmul in f32, each row with the CTA tile of each
+     schedule and its device time by record.  Each SSD row names its
+     device kernels' launches per call (device_kernels) and splits its
+     device time by device kernel (by_record_ms).  Bound: the
      larger of the bytes over the HBM rate and the operations over the
      card's peak for the inputs' type
      (bf16 tensor cores, or fp32 outside them).  Times are the device's
@@ -78,9 +81,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TRACE_PAIRS = 6                # profiler attempts per timed function
 REL_TOL = 1e-5                 # the reference's GEMM tolerance
-# device records of csrc/rasa_gemm.cu's kernels (decode, tensor-core, SIMT)
-GEMM_RECORDS = ("decode_kernel", "tile_kernel", "wlbp_kernel", "base_chunk_kernel",
-                "wlbp_chunk_kernel", "wls_kernel")
+# device records of csrc/rasa_gemm.cu's kernels (decode, tensor-core, SIMT):
+# its __global__ names, no one a part of another
+GEMM_RECORDS = ("decode_kernel", "tile_kernel", "wlbp_kernel", "sgemm_tile", "sgemm_wlbp")
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # tests/test_kernels.py:112,121
 SSD_TOL = {"bfloat16": 3e-2, "float32": 2e-5}     # tests/test_ssd_kernel.py:55,37
 SERVE_TOL = 2e-2               # kernel vs xla engine, f32 weights
@@ -236,7 +239,10 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
     """Phase 3, GEMM: every schedule against the plain version; returns the
     max abs error per schedule.  Each model's distinct (K, N) at M = batch
     (decode) and M = batch * prompt (prefill), its tied head at M = batch
-    and 512, and ragged shapes."""
+    and 512, and ragged shapes, in bf16 and f32; then f32-only M > 4 cases
+    of the SIMT kernels: wlbp chunks deeper than the bf16 block holds (2048,
+    and 3072, the deepest a cluster of 8 holds), a ragged M across a
+    cluster, and embedding.T with A a column slice (unaligned rows)."""
     main = rk.GemmBlocks(configs[0].engine.block_m, configs[0].engine.block_k,
                          configs[0].engine.block_n)
     small = rk.GemmBlocks(128, 128, 128)
@@ -260,10 +266,17 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
               (3, 2500, 515, True, rk.GemmBlocks(128, 2048, 128)),
               (1, 1500, 1000, False, rk.GemmBlocks(128, 1280, 128)),
               (2, 6144, 2048, False, main)]
+    both, f32 = (torch.bfloat16, torch.float32), (torch.float32,)
+    cases = [(*case, both, 0) for case in cases] + [
+        (64, 2500, 300, False, rk.GemmBlocks(128, 2048, 128), f32, 0),
+        (64, 3200, 300, True, rk.GemmBlocks(128, 3072, 128), f32, 0),
+        (300, 1000, 260, False, main, f32, 0),
+        (300, 700, 515, True, rk.GemmBlocks(128, 256, 128), f32, 1)]
     worst = {s: 0.0 for s in rk.SCHEDULES}
-    for mm, k, n, transposed, blocks in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            a = rnd(mm, k).to(dtype)
+    for mm, k, n, transposed, blocks, dtypes, offset in cases:
+        for dtype in dtypes:
+            # offset: A as a column slice of a wider tensor (rows not 16-byte aligned)
+            a = rnd(mm, k + offset).to(dtype)[:, offset:]
             # the tied head reads embedding.T in place
             b = rnd(n, k).to(dtype).T if transposed else rnd(k, n).to(dtype)
             for c in (None, rnd(mm, n)):
@@ -280,8 +293,10 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
                     if not torch.equal(got, outs["wls"]):
                         raise AssertionError(f"{s} differs from wls at ({mm},{k},{n}) {dtype}")
             del a, b
-        print(f"check gemm ({mm},{k},{n}){' B=embedding.T' if transposed else ''}: "
-              f"rel_err < {REL_TOL} in bf16 and f32, schedules bit-identical")
+        print(f"check gemm ({mm},{k},{n}) bk={blocks.bk}{' B=embedding.T' if transposed else ''}"
+              f"{f' A offset {offset}' if offset else ''}: rel_err < {REL_TOL} in "
+              f"{' and '.join(str(d)[6:] for d in dtypes)}, "
+              "schedules bit-identical")
     return worst
 
 
@@ -357,9 +372,11 @@ def time_gemm_f32_prefill(torch, rk, cfg) -> dict:
     layer GEMMs (M = batch * prompt, no head) in f32 under each schedule,
     the plain version and torch.matmul (TF32 off, as main() sets it), by
     time_gemm's method: each shape's device time over a distinct weight per
-    layer, times its count per forward.  Returns the sums (ms) and each
-    timed function's timer; the bound is the larger of the f32 bytes and
-    the operations at the fp32 peak."""
+    layer, times its count per forward.  Each row gives the CTA tile each
+    schedule's kernel took and splits each schedule's device time by record
+    (by_record_ms: the GEMM kernels, and any other, such as C's zero fill).
+    Returns the sums (ms) and each timed function's timer; the bound is the
+    larger of the f32 bytes and the operations at the fp32 peak."""
     m = cfg.model
     blocks = rk.GemmBlocks(cfg.engine.block_m, cfg.engine.block_k, cfg.engine.block_n)
     gen = torch.Generator(device=DEV).manual_seed(10)
@@ -373,10 +390,13 @@ def time_gemm_f32_prefill(torch, rk, cfg) -> dict:
     for k, n, count in layer_shapes(m):
         ws = [torch.randn(k, n, device=DEV, generator=gen) for _ in range(m.n_layers)]
         a = torch.randn(mm, k, device=DEV, generator=gen)
-        row = {"M": mm, "K": k, "N": n, "per_forward": count, "dtype": "float32"}
+        row = {"M": mm, "K": k, "N": n, "per_forward": count, "dtype": "float32",
+               "tile": {s: rk.simt_tile(s, mm, n) for s in rk.SCHEDULES}, "by_record_ms": {}}
         for name, f in fns.items():
-            dev, _, timer, _ = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+            dev, _, timer, recs = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
             row[f"{name}_ms"] = dev / len(ws)
+            if name in rk.SCHEDULES:
+                row["by_record_ms"][name] = record_split(recs, GEMM_RECORDS, len(ws))
             total[name] += count * dev / len(ws)
             timers[name].add(timer)
         row["bytes_ms"], row["operations_ms"] = gemm_bound_ms(mm, k, n, "float32")

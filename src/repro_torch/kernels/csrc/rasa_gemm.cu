@@ -21,11 +21,16 @@
 //         operands arrive by 16-byte cp.async copies through a 3-deep
 //         ring of 64-deep k slabs, so two slabs are in flight while one
 //         is multiplied.
-//   M > 4, f32: SIMT fp32 FMA (TF32 would break the reference's rel_err
-//         < 1e-5 for f32 inputs).  64 x 64 CTA tiles, 4 x 4 outputs per
-//         thread, one FMA chain per output over each chunk (fma_slab);
-//         the next k-slab's loads are issued before the current slab's
-//         arithmetic.
+//   M > 4, f32 (namespace simt below): SIMT fp32 FMA (TF32 would break the
+//         reference's rel_err < 1e-5 for f32 inputs), so the bound is the
+//         67 TFLOP/s fp32 rate.  On this card a 16-byte shared load costs
+//         a quarter-warp a cycle however many lanes share its address, so
+//         shared-memory bandwidth caps a thread tile of RM x 8 outputs at
+//         RM / (RM + 8) * 2 of the FMA rate: 67% at 4 x 8, 100% at 8 x 8.
+//         base and wls: 128 x 64 (or 64 x 64) CTA tiles of 4 x 8 outputs a
+//         thread, which fill the SMs at M = 512; wlbp: 256 x 64 tiles of
+//         8 x 8.  Operands arrive by 16-byte cp.async copies, A unchanged
+//         as [m][k], through a 3-deep ring of 32-deep k slabs.
 //   M <= 4 (decode, namespace dec below), bound by the bytes of B, in both
 //         dtypes and all three schedules.  What it does about each limit
 //         of the design it replaced (one CTA of 16 columns per SM, a whole
@@ -52,12 +57,17 @@
 //         loads its own B slab, so B is re-read from HBM once per M tile.
 //   wlbp  one launch per k-chunk; the chunk's bk x TN block of B is read
 //         from HBM once per N slab, stays in shared memory, and the M
-//         tiles are walked over it (the WLBP weight-load skip).  SIMT: one
-//         CTA per N slab walks every M tile.  bf16: a cluster of G <= 8
-//         CTAs along M shares the block: each loads 1/G of it, gathers the
-//         rest from the others' shared memory, and walks its own M tiles.
-//   wls   output-stationary: one CTA per output tile keeps an fp32 register
-//         accumulator seeded from C, walks all k-chunks, writes C once.
+//         tiles are walked over it (the WLBP weight-load skip).  A cluster
+//         of G <= 8 CTAs along M shares the block: each loads 1/G of it
+//         from HBM and walks its own M tiles.  bf16: each gathers the rest
+//         into a copy of the whole block on its first tile.  f32 (twice
+//         the bytes): each keeps only its share, and reads the others'
+//         slabs from their shared memory into a two-slot ring one slab
+//         ahead of use; so G also grows with the chunk's depth, and a
+//         chunk up to 3072 deep fits a cluster of 8.
+//   wls   output-stationary: one CTA per output tile keeps an fp32
+//         accumulator seeded from C (in registers; f32 M > 4: in shared
+//         memory), walks all k-chunks, writes C once.
 //
 // Numerics.  The three schedules are bit-identical.  On each path every
 // output's partial sum over one k-chunk is formed in one fixed order by one
@@ -76,279 +86,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-template <int TM_, int TN_, int RM_, int RN_, int KT_>
-struct Tile {
-  static constexpr int TM = TM_, TN = TN_, RM = RM_, RN = RN_, KT = KT_;
-  static constexpr int CM = TM / RM, CN = TN / RN;  // threads along M, N
-  static constexpr int NT = CM * CN;                // threads per CTA
-  static constexpr int LDA = TM + 4, LDB = TN + 4;  // smem pitches: 16-byte rows
-  static constexpr int NA = TM * KT / NT, NB = KT * TN / NT;  // loads per thread
-};
-using kSquare = Tile<64, 64, 4, 4, 16>;   // M > 4, f32; bf16 and M <= 4 below
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename S> __device__ __forceinline__ S from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Loads are issued kBatch at a time into registers before any is stored,
-// so each thread keeps kBatch global loads in flight.
-constexpr int kBatch = 16;
-
-// A slab [TM rows, KT] at (m0, ks) -> As[kk * LDA + r] as fp32, zero outside
-// rows < M and k < kend.  Consecutive threads read consecutive k (wlbp).
-template <class C, typename T>
-__device__ __forceinline__ void load_a(float* As, const T* A, long long lda,
-                                       int M, int m0, int ks, int kend) {
-  constexpr int total = C::TM * C::KT;
-  for (int base = threadIdx.x; base < total; base += C::NT * kBatch) {
-    float r[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * C::NT;
-      const int kk = idx % C::KT, m = m0 + idx / C::KT, k = ks + kk;
-      r[u] = (idx < total && m < M && k < kend) ? to_f32(A[(long long)m * lda + k]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * C::NT;
-      if (idx < total) As[(idx % C::KT) * C::LDA + idx / C::KT] = r[u];
-    }
-  }
-}
-
-// B block [rows, TN] at (ks, n0) -> Bs[kk * ldb + c] in type S, zero outside
-// k < kend and n < N.  Threads walk B's unit-stride axis, so the loads are
-// coalesced both for a row-major weight and for the transposed embedding.
-template <class C, typename S, typename T>
-__device__ __forceinline__ void load_b(S* Bs, int ldb, const T* B, long long sbk,
-                                       long long sbn, int N, int n0, int ks,
-                                       int kend, int rows) {
-  const bool n_fast = (sbn == 1);
-  const int total = rows * C::TN;
-  for (int base = threadIdx.x; base < total; base += C::NT * kBatch) {
-    float r[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * C::NT;
-      const int kk = n_fast ? idx / C::TN : idx % rows;
-      const int c = n_fast ? idx % C::TN : idx / rows;
-      const int k = ks + kk, n = n0 + c;
-      r[u] = (idx < total && k < kend && n < N) ? to_f32(B[k * sbk + n * sbn]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * C::NT;
-      const int kk = n_fast ? idx / C::TN : idx % rows;
-      const int c = n_fast ? idx % C::TN : idx / rows;
-      if (idx < total) Bs[kk * ldb + c] = from_f32<S>(r[u]);
-    }
-  }
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
-}
-
-// The one order every schedule shares on this path: for each of this
-// thread's outputs (rows tr*4 + i, columns tc*4 + j of the tile),
-// p = fma(a[k], b[k], p) for k ascending over one KT slab.
-template <class C, typename S>
-__device__ __forceinline__ void fma_slab(float (&p)[C::RM][C::RN], const float* As,
-                                         const S* Bs, int ldb, int tr, int tc) {
-  static_assert(C::RM == 4 && C::RN == 4, "4 x 4 outputs per thread");
-#pragma unroll
-  for (int kk = 0; kk < C::KT; ++kk) {
-    float a[4], b[4];
-    load4(As + kk * C::LDA + tr * 4, a);
-    load4(Bs + kk * ldb + tc * 4, b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = __fmaf_rn(a[i], b[j], p[i][j]);
-  }
-}
-
-template <class C>
-__device__ __forceinline__ void zero(float (&p)[C::RM][C::RN]) {
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::RN; ++j) p[i][j] = 0.f;
-}
-
-// C[m, n] = C[m, n] + p, one rounded add per chunk (the `c_in + dot` step).
-// C is updated in place: the wrapper owns the buffer.
-template <class C>
-__device__ __forceinline__ void fold_into_c(float* Cm, int M, int N, int m0, int n0,
-                                            int tr, int tc,
-                                            const float (&p)[C::RM][C::RN]) {
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::RN; ++j) {
-      const int m = m0 + tr * C::RM + i, n = n0 + tc * C::RN + j;
-      if (m < M && n < N) {
-        float* c = Cm + (long long)m * N + n;
-        *c = __fadd_rn(*c, p[i][j]);
-      }
-    }
-}
-
-// One KT slab of A and B in flight in registers (issued before the
-// previous slab's arithmetic, stored to shared memory after it).
-template <class C>
-struct SqStage {
-  float a[C::NA], b[C::NB];
-};
-
-template <class C, typename T>
-__device__ __forceinline__ void sq_issue(SqStage<C>& st, const T* A, long long lda,
-                                         const T* B, long long sbk, long long sbn, int M,
-                                         int N, int m0, int n0, int ks, int kend) {
-  const bool n_fast = (sbn == 1);
-#pragma unroll
-  for (int u = 0; u < C::NA; ++u) {
-    const int idx = threadIdx.x + u * C::NT;
-    const int m = m0 + idx / C::KT, k = ks + idx % C::KT;
-    st.a[u] = (m < M && k < kend) ? to_f32(A[(long long)m * lda + k]) : 0.f;
-  }
-#pragma unroll
-  for (int u = 0; u < C::NB; ++u) {
-    const int idx = threadIdx.x + u * C::NT;
-    const int kk = n_fast ? idx / C::TN : idx % C::KT;
-    const int c = n_fast ? idx % C::TN : idx / C::KT;
-    const int k = ks + kk, n = n0 + c;
-    st.b[u] = (k < kend && n < N) ? to_f32(B[k * sbk + n * sbn]) : 0.f;
-  }
-}
-
-template <class C>
-__device__ __forceinline__ void sq_commit(const SqStage<C>& st, float* As, float* Bs,
-                                          bool n_fast) {
-#pragma unroll
-  for (int u = 0; u < C::NA; ++u) {
-    const int idx = threadIdx.x + u * C::NT;
-    As[(idx % C::KT) * C::LDA + idx / C::KT] = st.a[u];
-  }
-#pragma unroll
-  for (int u = 0; u < C::NB; ++u) {
-    const int idx = threadIdx.x + u * C::NT;
-    const int kk = n_fast ? idx / C::TN : idx % C::KT;
-    const int c = n_fast ? idx % C::TN : idx / C::KT;
-    Bs[kk * C::LDB + c] = st.b[u];
-  }
-}
-
-// p = the chunk [k0, kend) partial of this thread's outputs, with A and B
-// staged slab by slab, the next slab's loads in flight during the
-// arithmetic (base and wls).
-template <class C, typename T>
-__device__ __forceinline__ void staged_chunk(float (&p)[C::RM][C::RN], float* As,
-                                             float* Bs, const T* A, long long lda,
-                                             const T* B, long long sbk, long long sbn,
-                                             int M, int N, int m0, int n0, int k0,
-                                             int kend, int tr, int tc) {
-  zero<C>(p);
-  SqStage<C> st;
-  sq_issue<C>(st, A, lda, B, sbk, sbn, M, N, m0, n0, k0, kend);
-  for (int ks = k0; ks < kend; ks += C::KT) {
-    sq_commit<C>(st, As, Bs, sbn == 1);
-    __syncthreads();
-    if (ks + C::KT < kend)
-      sq_issue<C>(st, A, lda, B, sbk, sbn, M, N, m0, n0, ks + C::KT, kend);
-    fma_slab<C>(p, As, Bs, C::LDB, tr, tc);
-    __syncthreads();
-  }
-}
-
-template <class C>
-__host__ __device__ constexpr int staged_smem_bytes() {
-  return (C::KT * C::LDA + C::KT * C::LDB) * 4;
-}
-
-template <class C, typename T>
-__global__ void __launch_bounds__(C::NT)
-base_chunk_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
-                  float* Cm, int M, int N, int K, int k0, int bk) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + C::KT * C::LDA;
-  const int tr = threadIdx.x / C::CN, tc = threadIdx.x % C::CN;
-  const int n0 = blockIdx.x * C::TN, m0 = blockIdx.y * C::TM;
-  float p[C::RM][C::RN];
-  staged_chunk<C>(p, As, Bs, A, lda, B, sbk, sbn, M, N, m0, n0, k0, min(k0 + bk, K),
-                  tr, tc);
-  fold_into_c<C>(Cm, M, N, m0, n0, tr, tc, p);
-}
-
-template <class C, typename T>
-__global__ void __launch_bounds__(C::NT)
-wlbp_chunk_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
-                  float* Cm, int M, int N, int K, int k0, int bk) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  T* Bblk = reinterpret_cast<T*>(smem + C::KT * C::LDA);
-  constexpr int ldb = C::LDB;
-  const int kend = min(k0 + bk, K);
-  const int rows = (kend - k0 + C::KT - 1) / C::KT * C::KT;
-  const int tr = threadIdx.x / C::CN, tc = threadIdx.x % C::CN;
-  const int n0 = blockIdx.x * C::TN;
-  // the chunk's one weight load: B stays resident for every M tile below
-  load_b<C>(Bblk, ldb, B, sbk, sbn, N, n0, k0, kend, rows);
-  for (int m0 = 0; m0 < M; m0 += C::TM) {
-    float p[C::RM][C::RN];
-    zero<C>(p);
-    for (int ks = k0; ks < kend; ks += C::KT) {
-      load_a<C>(As, A, lda, M, m0, ks, kend);
-      __syncthreads();
-      fma_slab<C>(p, As, Bblk + (ks - k0) * ldb, ldb, tr, tc);
-      __syncthreads();
-    }
-    fold_into_c<C>(Cm, M, N, m0, n0, tr, tc, p);
-  }
-}
-
-template <class C, typename T>
-__global__ void __launch_bounds__(C::NT)
-wls_kernel(const T* A, long long lda, const T* B, long long sbk, long long sbn,
-           float* Cm, int M, int N, int K, int bk) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + C::KT * C::LDA;
-  const int tr = threadIdx.x / C::CN, tc = threadIdx.x % C::CN;
-  const int n0 = blockIdx.x * C::TN, m0 = blockIdx.y * C::TM;
-  float acc[C::RM][C::RN];
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::RN; ++j) {
-      const int m = m0 + tr * C::RM + i, n = n0 + tc * C::RN + j;
-      acc[i][j] = (m < M && n < N) ? Cm[(long long)m * N + n] : 0.f;
-    }
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    float p[C::RM][C::RN];
-    staged_chunk<C>(p, As, Bs, A, lda, B, sbk, sbn, M, N, m0, n0, k0,
-                    min(k0 + bk, K), tr, tc);
-#pragma unroll
-    for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::RN; ++j) acc[i][j] = __fadd_rn(acc[i][j], p[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::RN; ++j) {
-      const int m = m0 + tr * C::RM + i, n = n0 + tc * C::RN + j;
-      if (m < M && n < N) Cm[(long long)m * N + n] = acc[i][j];
-    }
-}
 
 // ------------------------------------------------------- bf16 prefill path
 // M > 4 with bf16 inputs, on the tensor cores.  A CTA owns a TM x TN tile
@@ -861,6 +598,497 @@ int smem_bytes(int a_stages, int b_slabs) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------- f32 M > 4 path
+// M > 4 with f32 inputs, on the SIMT fp32 units.  A warp's lanes are 4 x 8
+// (ty, tx); a thread owns RM x 8 outputs: rows ty + 4 i (i < RM) of its
+// warp's 4 RM rows, columns tx * 4 + 0-3 and 32 + tx * 4 + 0-3 of the 64.
+// Shared memory holds A as [m][k] and B as [k][n], each row padded by 16
+// bytes: A arrives by cp.async along k unchanged (no transposing stores),
+// and a thread reads its A as one float4 of four k per row, its B as two
+// float4s per k.  The four rows of an A read and the 128 bytes of a B read
+// fall on distinct banks.
+//
+// What bounds it: a warp's 16-byte shared load takes four cycles of the
+// SM's shared memory whether or not its lanes share addresses (a variant
+// whose B loads had 32 distinct addresses took the same time), so a
+// thread that loads RM + 8 floats per k for RM x 8 FMAs keeps the SM's four
+// FMA pipes at most RM / (RM + 8) * 2 busy: 67% at 4 x 8, 100% at 8 x 8.
+// The tiles (host side below) trade that against filling 132 SMs at
+// M = 512 and against registers: 4 x 8 for base and wls (128 registers;
+// 128-row CTAs of 256 threads or 64-row CTAs of 128), 8 x 8 for wlbp
+// (256-row CTAs of 256 threads).  32-deep slabs through a 3-deep ring keep
+// the barriers to one per 32 k.  Every copy of a whole slab inside the
+// tile is one precomputed cp.async per 16 bytes (CopyPlan); only edge
+// slabs take the masked copies.  No accumulator beside the chunk's partial
+// lives in registers: base and wlbp add the partial to C at the chunk's
+// end, wls to its accumulator in shared memory.
+//
+// The shared routine is fma_slab: for each output, p = fma(a[k], b[k], p)
+// for k ascending over one KT-deep slab.  A chunk's partial is fma_slab
+// over its slabs from zero (zeros past the chunk's end add nothing), and
+// is added to C, or to wls's accumulator seeded from C, with one
+// __fadd_rn: the order of every output's sum is the same whatever the tile
+// or the schedule, so the three are bit-identical, and equal to the SIMT
+// kernels they replaced.
+namespace simt {
+
+namespace cg = cooperative_groups;
+
+constexpr int TN = 64, KT = 32, kStages = 3;
+constexpr int LDA = KT + 4, LDB = TN + 4;  // padded pitches, in floats
+constexpr int B_SLAB = KT * LDB;           // floats per B slab
+constexpr int kMaxCluster = 8;             // the portable cluster size
+constexpr int kSmemMax = 232448;           // bytes a CTA may use
+
+// A CTA tile of TM x TN outputs, RM x 8 of them a thread: NT threads, each
+// warp 4 RM rows.
+template <int TM_, int RM_>
+struct Shape {
+  static constexpr int TM = TM_, RM = RM_;
+  static constexpr int NT = TM * TN / (RM * 8);          // threads
+  static constexpr int A_SLAB = TM * LDA;                // floats per A slab
+  static constexpr int AU = TM * KT / 4 / NT;            // 16-byte units of A a thread
+  static constexpr int BU = KT * TN / 4 / NT;            // ... of B
+  // CTAs an SM must hold: 8 x 8 may take 255 registers a thread, 4 x 8 128
+  static constexpr int MIN_CTAS = RM == 8 ? 1 : 65536 / (NT * 128);
+  static_assert(TM * KT / 4 % NT == 0 && KT * TN / 4 % NT == 0, "whole units per thread");
+};
+
+// This thread's first output row and column in the CTA tile.
+template <int RM>
+__device__ __forceinline__ int row0() {
+  return threadIdx.x / 32 * 4 * RM + threadIdx.x % 32 / 8;
+}
+
+__device__ __forceinline__ int col0() { return threadIdx.x % 8 * 4; }
+
+// [row i][half h][column j] of this thread's outputs: row row0 + 4 i,
+// column col0 + 32 h + j.
+template <int RM>
+struct Frag {
+  float v[RM][2][4];
+};
+
+template <int RM>
+__device__ __forceinline__ void zero(Frag<RM>& f) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f.v[i][j / 4][j % 4] = 0.f;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The one order every schedule shares: part += the product of one slab,
+// As at this thread's first row of the slab and Bs at its first column,
+// k ascending.
+template <int RM>
+__device__ __forceinline__ void fma_slab(Frag<RM>& part, const float* As, const float* Bs) {
+#pragma unroll
+  for (int kq = 0; kq < KT; kq += 4) {
+    float4 a[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = *reinterpret_cast<const float4*>(As + i * 4 * LDA + kq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + (kq + kk) * LDB);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + (kq + kk) * LDB + 32);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float ai = lane_of(a[i], kk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float& p = part.v[i][j / 4][j % 4];
+          p = __fmaf_rn(ai, b[j], p);
+        }
+      }
+    }
+  }
+}
+
+// A[m0 : m0 + TM, ks : ks + KT] -> As[r * LDA + kk], zero outside m < M and
+// k < kend.  A 16-byte unit (four k of a row) that lies inside and whose
+// source is aligned is one cp.async; any other (the ragged edge, a column
+// slice of A) is copied element by element.
+template <class S>
+__device__ __forceinline__ void copy_a(float* As, const float* A, long long lda, int M, int m0,
+                                       int ks, int kend) {
+#pragma unroll
+  for (int i = 0; i < S::AU; ++i) {
+    const int u = threadIdx.x + i * S::NT;
+    const int r = u / (KT / 4), kk = u % (KT / 4) * 4, m = m0 + r, k = ks + kk;
+    float* dst = As + r * LDA + kk;
+    const float* src = A + (long long)m * lda + k;
+    if (m < M && k + 4 <= kend && tc::aligned16(src)) {
+      tc::cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = (m < M && k + j < kend) ? src[j] : 0.f;
+    }
+  }
+}
+
+// B[ks : ks + KT, n0 : n0 + TN] -> Bs[kk * LDB + c], zero outside k < kend
+// and n < N.  An n-fast B goes in 16-byte units along n, as copy_a; any
+// other (embedding.T is k-fast) in units of four k down a column, element
+// by element, transposed into the same [k][n] layout.
+template <class S>
+__device__ __forceinline__ void copy_b(float* Bs, const float* B, long long sbk, long long sbn,
+                                       int N, int n0, int ks, int kend) {
+  if (sbn == 1) {
+#pragma unroll
+    for (int i = 0; i < S::BU; ++i) {
+      const int u = threadIdx.x + i * S::NT;
+      const int kk = u / (TN / 4), c = u % (TN / 4) * 4, k = ks + kk, n = n0 + c;
+      float* dst = Bs + kk * LDB + c;
+      const float* src = B + k * sbk + n;
+      if (k < kend && n + 4 <= N && tc::aligned16(src)) {
+        tc::cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[j] = (k < kend && n + j < N) ? src[j] : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < S::BU; ++i) {
+      const int u = threadIdx.x + i * S::NT;
+      const int c = u / (KT / 4), kk = u % (KT / 4) * 4, k = ks + kk, n = n0 + c;
+      const float* src = B + k * sbk + n * sbn;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Bs[(kk + j) * LDB + c] = (k + j < kend && n < N) ? src[j * sbk] : 0.f;
+    }
+  }
+}
+
+// Where this thread's 16-byte units of an A and a B slab come from (at
+// k = 0) and go to, set up once per CTA tile.  Unit i of A is row
+// a_row + i * RA of the tile, columns a_col + 0-3 of the slab; unit i of B
+// is slab row b_row + i * RB, columns b_col + 0-3 (RA = 4 NT / KT,
+// RB = NT / 16 rows per pass).  a_fast (b_fast) holds when every such unit
+// of a whole slab is one aligned cp.async: the tile lies inside M (N), the
+// pointer and the row stride keep 16-byte alignment (and B is n-fast).  A
+// whole slab lies inside the chunk and starts on a multiple of 4; every
+// other slab goes through the masked copy_a and copy_b.
+struct CopyPlan {
+  const float* a;            // A + (m0 + a_row) * lda + a_col
+  const float* b;            // B + b_row * sbk + n0 + b_col
+  long long a_step, b_step;  // RA rows of A, RB rows of B
+  int a_dst, b_dst;          // shared-memory offsets of unit 0
+  bool a_fast, b_fast;
+};
+
+template <class S>
+__device__ __forceinline__ CopyPlan make_plan(const float* A, long long lda, const float* B,
+                                              long long sbk, long long sbn, int M, int N, int m0,
+                                              int n0) {
+  const int a_row = threadIdx.x / (KT / 4), a_col = threadIdx.x % (KT / 4) * 4;
+  const int b_row = threadIdx.x / (TN / 4), b_col = threadIdx.x % (TN / 4) * 4;
+  CopyPlan p;
+  p.a = A + (long long)(m0 + a_row) * lda + a_col;
+  p.b = B + b_row * sbk + n0 + b_col;
+  p.a_step = (long long)(S::NT / (KT / 4)) * lda;
+  p.b_step = (long long)(S::NT / (TN / 4)) * sbk;
+  p.a_dst = a_row * LDA + a_col;
+  p.b_dst = b_row * LDB + b_col;
+  p.a_fast = m0 + S::TM <= M && tc::aligned16(A) && lda % 4 == 0;
+  p.b_fast = n0 + TN <= N && sbn == 1 && tc::aligned16(B) && sbk % 4 == 0;
+  return p;
+}
+
+__device__ __forceinline__ bool whole_slab(int ks, int kend) {
+  return ks + KT <= kend && (ks & 3) == 0;
+}
+
+// The A slab at ks -> As, by the plan where it can, masked otherwise.
+template <class S>
+__device__ __forceinline__ void plan_a(float* As, const CopyPlan& p, const float* A, long long lda,
+                                       int M, int m0, int ks, int kend) {
+  if (p.a_fast && whole_slab(ks, kend)) {
+#pragma unroll
+    for (int i = 0; i < S::AU; ++i)
+      tc::cp_async16(As + p.a_dst + i * (S::NT / (KT / 4)) * LDA, p.a + i * p.a_step + ks);
+  } else {
+    copy_a<S>(As, A, lda, M, m0, ks, kend);
+  }
+}
+
+// The B slab at ks -> Bs, by the plan where it can, masked otherwise.
+template <class S>
+__device__ __forceinline__ void plan_b(float* Bs, const CopyPlan& p, const float* B, long long sbk,
+                                       long long sbn, int N, int n0, int ks, int kend) {
+  if (p.b_fast && whole_slab(ks, kend)) {
+    const float* src = p.b + ks * sbk;
+#pragma unroll
+    for (int i = 0; i < S::BU; ++i)
+      tc::cp_async16(Bs + p.b_dst + i * (S::NT / (TN / 4)) * LDB, src + i * p.b_step);
+  } else {
+    copy_b<S>(Bs, B, sbk, sbn, N, n0, ks, kend);
+  }
+}
+
+// fn(q, v, c, n, vec) for each run of four of this thread's outputs in a
+// row inside M: q its index (2 i + h), v its four values in f, c its
+// address in C, n its first column, vec whether it lies inside N and can
+// move as one aligned float4.
+template <int RM, class F>
+__device__ __forceinline__ void each_run(Frag<RM>& f, float* Cm, int M, int N, int m0, int n0,
+                                         F fn) {
+  const int r0 = m0 + row0<RM>(), c0 = n0 + col0();
+  const bool vec = N % 4 == 0 && tc::aligned16(Cm);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = r0 + 4 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = c0 + 32 * h;
+      if (m < M) fn(2 * i + h, f.v[i][h], Cm + (long long)m * N + n, n, vec && n < N);
+    }
+  }
+}
+
+// C += part over the tile, one rounded add per output.  C is updated in
+// place: the wrapper owns it.
+template <int RM>
+__device__ __forceinline__ void add_to_c(Frag<RM>& part, float* Cm, int M, int N, int m0, int n0) {
+  each_run(part, Cm, M, N, m0, n0, [&](int, float (&v)[4], float* c, int n, bool vec) {
+    if (vec) {
+      float4 x = *reinterpret_cast<const float4*>(c);
+      x.x = __fadd_rn(x.x, v[0]);
+      x.y = __fadd_rn(x.y, v[1]);
+      x.z = __fadd_rn(x.z, v[2]);
+      x.w = __fadd_rn(x.w, v[3]);
+      *reinterpret_cast<float4*>(c) = x;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) c[j] = __fadd_rn(c[j], v[j]);
+    }
+  });
+}
+
+// wls's accumulator, in shared memory: run q of thread t at
+// Cs[(q * NT + t) * 4], so a warp's accesses are 512 contiguous bytes.
+// Each thread touches only its own runs, so no barrier guards it.
+template <class S>
+__device__ __forceinline__ float* run_at(float* Cs, int q) {
+  return Cs + (q * S::NT + threadIdx.x) * 4;
+}
+
+// Cs = C over the tile: aligned runs by cp.async, in the copy group of the
+// ring's first slab, the rest element by element (0 outside N; runs outside
+// M are never read).
+template <class S, int RM>
+__device__ __forceinline__ void seed_acc(float* Cs, Frag<RM>& f, float* Cm, int M, int N, int m0,
+                                         int n0) {
+  each_run(f, Cm, M, N, m0, n0, [&](int q, float (&)[4], const float* c, int n, bool vec) {
+    float* d = run_at<S>(Cs, q);
+    if (vec) {
+      tc::cp_async16(d, c);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[j] = n + j < N ? c[j] : 0.f;
+    }
+  });
+}
+
+// Cs += part, one rounded add per output; part restarts from zero.
+template <class S, int RM>
+__device__ __forceinline__ void fold_acc(float* Cs, Frag<RM>& part) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4* d = reinterpret_cast<float4*>(run_at<S>(Cs, 2 * i + h));
+      float4 x = *d;
+      float(&v)[4] = part.v[i][h];
+      x.x = __fadd_rn(x.x, v[0]);
+      x.y = __fadd_rn(x.y, v[1]);
+      x.z = __fadd_rn(x.z, v[2]);
+      x.w = __fadd_rn(x.w, v[3]);
+      *d = x;
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+}
+
+// C = Cs over the tile.
+template <class S, int RM>
+__device__ __forceinline__ void store_acc(float* Cs, Frag<RM>& f, float* Cm, int M, int N, int m0,
+                                          int n0) {
+  each_run(f, Cm, M, N, m0, n0, [&](int q, float (&)[4], float* c, int n, bool vec) {
+    const float4 x = *reinterpret_cast<const float4*>(run_at<S>(Cs, q));
+    if (vec) {
+      *reinterpret_cast<float4*>(c) = x;
+    } else {
+      const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) c[j] = v[j];
+    }
+  });
+}
+
+// base (one chunk: kbeg = k0, kstop = min(k0 + bk, K), chained) and wls
+// (kbeg = 0, kstop = K, not chained): the CTA of output tile (blockIdx.y,
+// blockIdx.x) forms each chunk's partial in registers.  base adds it to C
+// with one rounded add, reading C once the previous kernel on the stream
+// has finished; wls adds it to its accumulator in shared memory, seeded
+// from C, and writes C once.  Slabs arrive through a ring of kStages that
+// runs across chunk boundaries, two in flight while one is multiplied.
+template <int TM, int RM>
+__global__ void __launch_bounds__(Shape<TM, RM>::NT, Shape<TM, RM>::MIN_CTAS)
+sgemm_tile(const float* A, long long lda, const float* B, long long sbk, long long sbn,
+           float* Cm, int M, int N, int kbeg, int kstop, int bk, int chained) {
+  using S = Shape<TM, RM>;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* As = simt_smem;
+  float* Bs = As + kStages * S::A_SLAB;
+  float* Cs = Bs + kStages * B_SLAB;  // wls only: TM x TN accumulators
+  tc::let_next_start();
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int a_at = row0<RM>() * LDA, b_at = col0();
+  const CopyPlan plan = make_plan<S>(A, lda, B, sbk, sbn, M, N, m0, n0);
+  Frag<RM> part;
+  zero(part);
+  if (!chained) seed_acc<S>(Cs, part, Cm, M, N, m0, n0);
+  int pk0 = kbeg, pks = kbeg;  // the next slab to copy: its chunk and k
+  auto issue = [&](int stage) {
+    if (pk0 < kstop) {
+      const int pend = min(pk0 + bk, kstop);
+      plan_a<S>(As + stage * S::A_SLAB, plan, A, lda, M, m0, pks, pend);
+      plan_b<S>(Bs + stage * B_SLAB, plan, B, sbk, sbn, N, n0, pks, pend);
+      pks += KT;
+      if (pks >= pend) pk0 = pks = pend;
+    }
+    tc::cp_async_commit();  // empty groups keep the count that wait relies on
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  int ck0 = kbeg, cks = kbeg;  // the slab to multiply: its chunk and k
+  for (int i = 0; ck0 < kstop; ++i) {
+    tc::cp_async_wait<kStages - 2>();  // slab i has landed (this thread's part)
+    __syncthreads();                   // ... everyone's; slab i - 1 is read
+    issue((i + kStages - 1) % kStages);
+    const int st = i % kStages;
+    fma_slab(part, As + st * S::A_SLAB + a_at, Bs + st * B_SLAB + b_at);
+    cks += KT;
+    const int cend = min(ck0 + bk, kstop);
+    if (cks >= cend) {  // the chunk's partial is whole
+      if (chained) {
+        tc::wait_for_previous();
+        add_to_c(part, Cm, M, N, m0, n0);
+      } else {
+        fold_acc<S>(Cs, part);
+      }
+      ck0 = cks = cend;
+    }
+  }
+  if (!chained) store_acc<S>(Cs, part, Cm, M, N, m0, n0);
+}
+
+// A slab of the chunk's B block from the shared memory of cluster CTA
+// `owner` into this CTA's (the TN data columns of its KT rows), through
+// BU 16-byte registers per thread: gather_load issues the reads,
+// gather_store writes them once their slot is free.
+template <class S>
+__device__ __forceinline__ void gather_load(float4 (&g)[S::BU], float* slab, int owner) {
+  const float* src = cg::this_cluster().map_shared_rank(slab, owner);
+#pragma unroll
+  for (int i = 0; i < S::BU; ++i) {
+    const int u = threadIdx.x + i * S::NT;
+    g[i] = *reinterpret_cast<const float4*>(src + u / (TN / 4) * LDB + u % (TN / 4) * 4);
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void gather_store(const float4 (&g)[S::BU], float* slab) {
+#pragma unroll
+  for (int i = 0; i < S::BU; ++i) {
+    const int u = threadIdx.x + i * S::NT;
+    *reinterpret_cast<float4*>(slab + u / (TN / 4) * LDB + u % (TN / 4) * 4) = g[i];
+  }
+}
+
+// wlbp, one k-chunk [k0, kend) of nslab slabs.  The cluster (blockIdx.x,
+// its G CTAs along M) owns N slab blockIdx.y, and the chunk's B block stays
+// in the cluster's shared memory, read from HBM once: CTA r copies slabs
+// r, r + G, ... (its share, which it keeps), and then walks M tiles r,
+// r + G, ... over the whole block, A streaming through a ring of kStages
+// slabs.  A slab of another CTA's share is read from that CTA's shared
+// memory into a two-slot ring one slab ahead of its use, so the gather
+// overlaps the FMAs.  Keeping only a share puts two CTAs on an SM at
+// bk 512, and lets G rise to kMaxCluster for a block deeper than one CTA
+// holds (CTAs past the last M tile then only serve their share).  Each
+// tile's partial is added to C once the previous kernel on the stream has
+// finished.
+template <int TM, int RM>
+__global__ void __launch_bounds__(Shape<TM, RM>::NT, Shape<TM, RM>::MIN_CTAS)
+sgemm_wlbp(const float* A, long long lda, const float* B, long long sbk, long long sbn,
+           float* Cm, int M, int N, int k0, int kend, int nslab) {
+  using S = Shape<TM, RM>;
+  constexpr int R = kStages;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* As = simt_smem;               // the ring of A slabs
+  float* Bring = As + R * S::A_SLAB;   // two slabs gathered from other CTAs
+  float* Bown = Bring + 2 * B_SLAB;    // this CTA's share: slab r + j G at j * B_SLAB
+  tc::let_next_start();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int n0 = blockIdx.y * TN;
+  const CopyPlan share = make_plan<S>(A, lda, B, sbk, sbn, M, N, r * TM, n0);
+  for (int s = r; s < nslab; s += G)
+    plan_b<S>(Bown + s / G * B_SLAB, share, B, sbk, sbn, N, n0, k0 + s * KT, kend);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  cluster.sync();  // every CTA's share of the block has landed
+  const int a_at = row0<RM>() * LDA, b_at = col0();
+  const auto slab = [&](int s) {
+    return s % G == r ? Bown + s / G * B_SLAB : Bring + s % 2 * B_SLAB;
+  };
+  bool first = true;
+  for (int m0 = r * TM; m0 < M; m0 += G * TM) {
+    const CopyPlan plan = make_plan<S>(A, lda, B, sbk, sbn, M, N, m0, n0);
+    Frag<RM> part;
+    zero(part);
+    auto issue = [&](int s) {
+      if (s < nslab) plan_a<S>(As + s % R * S::A_SLAB, plan, A, lda, M, m0, k0 + s * KT, kend);
+      tc::cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < R - 1; ++s) issue(s);
+    float4 g[S::BU];
+    if (r != 0) {  // slab 0 is CTA 0's
+      gather_load<S>(g, Bown, 0);
+      gather_store<S>(g, Bring);
+    }
+    int pending = -1;  // the slab whose gathered units wait in g
+    for (int s = 0; s < nslab; ++s) {
+      if (pending >= 0) gather_store<S>(g, Bring + pending % 2 * B_SLAB);
+      pending = -1;
+      tc::cp_async_wait<R - 2>();
+      __syncthreads();
+      issue(s + R - 1);
+      const int nx = s + 1;
+      if (nx < nslab && nx % G != r) {
+        gather_load<S>(g, Bown + nx / G * B_SLAB, nx % G);
+        pending = nx;
+      }
+      fma_slab(part, As + s % R * S::A_SLAB + a_at, slab(s) + b_at);
+    }
+    if (first) tc::wait_for_previous();
+    first = false;
+    add_to_c(part, Cm, M, N, m0, n0);
+    __syncthreads();  // the next tile's first copies reuse the rings
+  }
+  cluster.sync();  // no CTA leaves while another may still read its share
+}
+
+}  // namespace simt
+
 // ------------------------------------------------------------- decode path
 // M <= 4.  A decode GEMM does 8 operations per weight byte, so it is bound
 // by the bytes of B, and the design is about keeping HBM busy: B is never
@@ -1157,8 +1385,8 @@ cudaError_t allow_smem(K kernel, int smem) {
 
 // Launches kernel with the given cluster size (0: none) and, with overlap,
 // the programmatic dependent launch attribute; returns the launch's error.
-// Both the tensor-core path and the decode path launch through it; the two
-// attributes launch together (tc::wlbp_kernel's chained chunks use both).
+// Every path launches through it; the two attributes launch together (the
+// wlbp kernels' chained chunks use both).
 // A refused launch (shared memory, cluster) returns its error: there is no
 // other path.  The kernel's attributes are set again only for a larger
 // launch or another device (a launch costs the host a few microseconds,
@@ -1206,45 +1434,6 @@ int launch_ex(dim3 grid, int threads, int smem, cudaStream_t stream, int cluster
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
-}
-
-template <class C, typename T>
-int ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sbk,
-             long long sbn, float* c, int M, int N, int K, int k0, int bk,
-             cudaStream_t stream) {
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  const int nt = (N + C::TN - 1) / C::TN;
-  if (wlbp) {
-    // the block holds the chunk's real depth, as wlbp_chunk_kernel reads it
-    const int depth = (long long)k0 + bk < K ? bk : K - k0;
-    const int rows = (depth + C::KT - 1) / C::KT * C::KT;
-    const int smem = C::KT * C::LDA * 4 + rows * C::LDB * (int)sizeof(T);
-    auto kernel = wlbp_chunk_kernel<C, T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<nt, C::NT, smem, stream>>>(A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
-  } else {
-    const int smem = staged_smem_bytes<C>();
-    auto kernel = base_chunk_kernel<C, T>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(nt, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
-        A, lda, B, sbk, sbn, c, M, N, K, k0, bk);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class C, typename T>
-int wls(const void* a, long long lda, const void* b, long long sbk, long long sbn,
-        float* c, int M, int N, int K, int bk, cudaStream_t stream) {
-  const int smem = staged_smem_bytes<C>();
-  auto kernel = wls_kernel<C, T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((N + C::TN - 1) / C::TN, (M + C::TM - 1) / C::TM), C::NT, smem, stream>>>(
-      static_cast<const T*>(a), lda, static_cast<const T*>(b), sbk, sbn, c, M, N, K, bk);
-  return (int)cudaGetLastError();
 }
 
 
@@ -1381,6 +1570,82 @@ int entry(int bf16, const void* a, long long lda, const void* b, long long sbk, 
 
 }  // namespace dec
 
+
+namespace simt {
+
+// base and wls: 128-row tiles of 256 threads, unless they would give fewer
+// CTAs than three quarters of the SMs (the tensor-core path's rule): then
+// 64-row tiles of 128 threads (4 x 8 outputs a thread in both).  At
+// qwen3-1.7b's prefill (M = 512) that is 128 CTAs for N = 2048, 384 for
+// N = 6144, and 128 of 64 rows for N = 1024.  Every output's sum is the
+// same FMA chain whatever the tile, so the choice changes no number.
+int tile_rows(int M, int N) { return tc::tall_tiles(M, N) ? 128 : 64; }
+
+template <int TM>
+int tile_launch(const float* A, long long lda, const float* B, long long sbk, long long sbn,
+                float* c, int M, int N, int kbeg, int kstop, int bk, bool wls,
+                cudaStream_t stream) {
+  using S = Shape<TM, 4>;
+  const int nt = (N + TN - 1) / TN, mt = (M + TM - 1) / TM;
+  const int smem = (kStages * (S::A_SLAB + B_SLAB) + (wls ? TM * TN : 0)) * (int)sizeof(float);
+  return launch_ex<sgemm_tile<TM, 4>>(dim3(nt, mt), S::NT, smem, stream, 0, !wls, A, lda, B, sbk,
+                                      sbn, c, M, N, kbeg, kstop, bk, (int)!wls);
+}
+
+// wlbp: 256-row tiles of 256 threads, 8 x 8 outputs a thread.  At
+// M = 512 a cluster is two CTAs, so half of each B block is gathered from
+// the other CTA's shared memory.
+constexpr int kWlbpRows = 256;
+using WlbpShape = Shape<kWlbpRows, 8>;
+
+// Slabs of B one CTA of sgemm_wlbp keeps beside its rings.
+constexpr int kShareCap =
+    (kSmemMax / 4 - kStages * WlbpShape::A_SLAB - 2 * B_SLAB) / B_SLAB;
+
+// The cluster of a wlbp chunk `depth` deep: one CTA per M tile, a power of
+// two up to kMaxCluster, and more while the block does not fit in the
+// CTAs' shares; 0 where kMaxCluster CTAs cannot hold it (deeper than
+// kMaxCluster * kShareCap * KT rows).
+int cluster_size(int M, int depth) {
+  const int nslab = (depth + KT - 1) / KT, mt = (M + kWlbpRows - 1) / kWlbpRows;
+  int G = 1;
+  while (2 * G <= kMaxCluster && (2 * G <= mt || (nslab + G - 1) / G > kShareCap)) G *= 2;
+  return (nslab + G - 1) / G <= kShareCap ? G : 0;
+}
+
+// The f32 M > 4 entry points.
+int launch_ws_chunk(int wlbp, const void* a, long long lda, const void* b, long long sbk,
+                    long long sbn, float* c, int M, int N, int K, int k0, int bk,
+                    cudaStream_t stream) {
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  const int kend = (long long)k0 + bk < K ? k0 + bk : K;
+  if (!wlbp)
+    return tile_rows(M, N) == 128
+               ? tile_launch<128>(A, lda, B, sbk, sbn, c, M, N, k0, kend, kend - k0, false, stream)
+               : tile_launch<64>(A, lda, B, sbk, sbn, c, M, N, k0, kend, kend - k0, false, stream);
+  const int nslab = (kend - k0 + KT - 1) / KT;
+  const int G = cluster_size(M, kend - k0);
+  if (G == 0) return (int)cudaErrorInvalidValue;  // deeper than a cluster holds
+  const int smem =
+      (kStages * WlbpShape::A_SLAB + (2 + (nslab + G - 1) / G) * B_SLAB) * (int)sizeof(float);
+  return launch_ex<sgemm_wlbp<kWlbpRows, 8>>(dim3(G, (N + TN - 1) / TN), WlbpShape::NT, smem,
+                                             stream, G, true, A, lda, B, sbk, sbn, c, M, N, k0,
+                                             kend, nslab);
+}
+
+int launch_wls(const void* a, long long lda, const void* b, long long sbk, long long sbn,
+               float* c, int M, int N, int K, int bk, cudaStream_t stream) {
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  bk = bk < K ? bk : K;
+  return tile_rows(M, N) == 128
+             ? tile_launch<128>(A, lda, B, sbk, sbn, c, M, N, 0, K, bk, true, stream)
+             : tile_launch<64>(A, lda, B, sbk, sbn, c, M, N, 0, K, bk, true, stream);
+}
+
+}  // namespace simt
+
 }  // namespace
 
 extern "C" {
@@ -1397,7 +1662,7 @@ int rasa_ws_chunk(int wlbp, int bf16, const void* a, long long lda, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 4) return dec::entry(bf16, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, 0, c_init, s);
   return bf16 ? tc::launch_ws_chunk(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s)
-              : ws_chunk<kSquare, float>(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
+              : simt::launch_ws_chunk(wlbp, a, lda, b, sbk, sbn, c, M, N, K, k0, bk, s);
 }
 
 // All of C += A @ B, output-stationary, k-chunks of bk (same layouts and
@@ -1407,8 +1672,18 @@ int rasa_wls(int bf16, const void* a, long long lda, const void* b, long long sb
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 4) return dec::entry(bf16, a, lda, b, sbk, sbn, c, M, N, K, 0, bk, 1, c_init, s);
   return bf16 ? tc::launch_wls(a, lda, b, sbk, sbn, c, M, N, K, bk, s)
-              : wls<kSquare, float>(a, lda, b, sbk, sbn, c, M, N, K, bk, s);
+              : simt::launch_wls(a, lda, b, sbk, sbn, c, M, N, K, bk, s);
 }
+
+// The rows of the f32 M > 4 path's CTA tile at (M, N) on the current
+// device, for wlbp (wlbp = 1) or base and wls (its columns are 64).
+int rasa_sgemm_tile(int wlbp, int M, int N) {
+  return wlbp ? simt::kWlbpRows : simt::tile_rows(M, N);
+}
+
+// The cluster size of an f32 M > 4 wlbp chunk `depth` deep, or 0 where the
+// chunk is deeper than a cluster of 8 CTAs holds (rasa_ws_chunk refuses it).
+int rasa_sgemm_wlbp_cluster(int M, int depth) { return simt::cluster_size(M, depth); }
 
 const char* rasa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -7,8 +7,9 @@ Hopper CTA):
 
   schedule="base"  weight-stationary, one launch per k-chunk; every output
                    tile reloads its B slab (WL before every rasa_mm).
-  schedule="wlbp"  weight-stationary, one launch per k-chunk; a CTA keeps its
-                   B block resident and walks every M tile (the WL skip).
+  schedule="wlbp"  weight-stationary, one launch per k-chunk; a cluster of
+                   CTAs along M keeps the chunk's B block on chip and walks
+                   every M tile over it (the WL skip).
   schedule="wls"   output-stationary, one launch; an fp32 accumulator seeded
                    from C walks all k-chunks and writes C once.
 
@@ -137,10 +138,21 @@ def _lib():
         lib.rasa_ws_chunk.restype = i
         lib.rasa_wls.argtypes = [i, p, ll, p, ll, ll, p, i, i, i, i, i, p]
         lib.rasa_wls.restype = i
+        lib.rasa_sgemm_tile.argtypes = [i, i, i]
+        lib.rasa_sgemm_tile.restype = i
+        lib.rasa_sgemm_wlbp_cluster.argtypes = [i, i]
+        lib.rasa_sgemm_wlbp_cluster.restype = i
         lib.rasa_error_string.argtypes = [i]
         lib.rasa_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def simt_tile(schedule: str, m: int, n: int) -> tuple[int, int]:
+    """The CTA tile (rows, columns) that ``schedule``'s f32 M > 4 kernel takes
+    at (M, N) on the current CUDA device: it follows M, N and the SM count,
+    and changes no number."""
+    return _lib().rasa_sgemm_tile(int(schedule == "wlbp"), m, n), 64
 
 
 def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
@@ -151,7 +163,9 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     a: [M, K] and b: [K, N], both bf16 or both f32, on one CUDA device; a
     unit-stride along K, b any strides (``embedding.T`` is read in place).
     Optional c: [M, N] accumulator input (not modified).  Raises on anything
-    else, including a tensor on the CPU: ``ops.rasa_matmul`` dispatches.
+    else, including a tensor on the CPU: ``ops.rasa_matmul`` dispatches; and
+    on an f32 ``wlbp`` chunk at M > 4 deeper than a cluster of 8 CTAs holds
+    (3072 rows).
     """
     m, k = a.shape
     n = b.shape[1]
@@ -180,6 +194,11 @@ def rasa_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     if m == 0 or n == 0 or k == 0:
         return out.to(out_dtype)
     lib = _lib()
+    if schedule == "wlbp" and a.dtype == torch.float32 and m > 4:
+        depth = min(blocks.bk, k)  # the first chunk is the deepest
+        if lib.rasa_sgemm_wlbp_cluster(m, depth) == 0:
+            raise ValueError(f"an f32 wlbp chunk {depth} deep at M={m} does not fit in "
+                             "the shared memory of a cluster of 8 CTAs")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     args = (_DTYPES[a.dtype], a.data_ptr(), a.stride(0), b.data_ptr(),
             b.stride(0), b.stride(1), out.data_ptr(), m, n, k)

@@ -1,5 +1,6 @@
 """Pure helpers of chip_smoke.py, on the CPU."""
 
+import re
 import sys
 from pathlib import Path
 
@@ -57,6 +58,31 @@ def test_record_split_groups_kernel_and_other_records(records, calls, want):
         assert got["kernels"] == pytest.approx(want["kernels"])
         for k, v in want["other"].items():
             assert got["other"][k] == pytest.approx(v)
+
+
+def test_gemm_records_are_the_global_kernel_names():
+    """GEMM_RECORDS names every __global__ kernel of csrc/rasa_gemm.cu and
+    nothing else, and no name is a part of another, so a renamed kernel
+    cannot drop out of the record count, nor be counted as another."""
+    src = (chip_smoke.ROOT / chip_smoke.SOURCES["gemm"]).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       src)
+    assert set(names) == set(chip_smoke.GEMM_RECORDS)
+    assert not any(a != b and a in b for a in names for b in names)
+
+
+@pytest.mark.parametrize("records,want", [
+    ({"void (anonymous namespace)::simt::sgemm_tile<128, 4>(...)": 0.3}, ["sgemm_tile"]),
+    ({"void (anonymous namespace)::simt::sgemm_wlbp<256, 8>(...)": 0.2,
+      "Memset (Device)": 0.01}, ["sgemm_wlbp"]),
+    ({"void (anonymous namespace)::tc::tile_kernel<128>(...)": 0.1,
+      "void (anonymous namespace)::tc::wlbp_kernel<64>(...)": 0.1},
+     ["tile_kernel", "wlbp_kernel"]),
+    ({"void (anonymous namespace)::dec::decode_kernel<8, float>(...)": 0.1}, ["decode_kernel"]),
+])
+def test_timed_kernels_tells_the_gemm_kernels_apart(records, want):
+    # the SIMT kernels are not counted as the tensor-core ones, nor the reverse
+    assert chip_smoke.timed_kernels(records, chip_smoke.GEMM_RECORDS) == want
 
 
 @pytest.mark.parametrize("byte_ms,ms,want", [(0.186, 0.186, 1.0), (0.186, 0.372, 0.5),

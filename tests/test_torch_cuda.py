@@ -30,7 +30,7 @@ def rel_err(got, want):
 # and small-shape cases; the rest cover the bf16 M > 4 tensor-core path:
 # M 5 to 2048, K and N not multiples of 8, a bk not a multiple of 16 and a
 # bk larger than K, and A rows that are not 16-byte aligned.  The last case
-# is a bk deeper than the f32 wlbp block can hold, over a K that it can:
+# is a bk deeper than the bf16 wlbp block can hold, over a K that it can:
 # the block is sized by the chunk's real depth.  The four after it are the
 # decode path (M <= 4) at depths it once refused: bk 2048 over K 700 and
 # K 2500 (embedding.T, a ragged second chunk), bk 1280, and the down
@@ -56,13 +56,23 @@ GEMM_CASES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape,bk,b_kfast,with_c,a_offset", GEMM_CASES)
-def test_cuda_gemm_matches_plain(shape, bk, b_kfast, with_c, a_offset, dtype):
+# f32 only, M > 4 (the SIMT kernels): wlbp chunks deeper than the bf16
+# block holds, 2048 over K 2500 and 3072 (the deepest a cluster of 8 CTAs
+# holds) over K 3200 with embedding.T; M 300, ragged across a wlbp cluster;
+# M 2100, more M tiles than a cluster has CTAs, so each walks two; and
+# embedding.T with A a column slice (rows not 16-byte aligned).
+F32_GEMM_CASES = [
+    ((64, 2500, 300), 2048, False, True, 0),
+    ((64, 3200, 300), 3072, True, False, 0),
+    ((300, 1000, 260), 512, False, True, 0),
+    ((2100, 300, 130), 128, False, True, 0),
+    ((300, 700, 515), 256, True, True, 1),
+]
+
+
+def gemm_check(shape, bk, b_kfast, with_c, a_offset, dtype):
     """Each schedule's kernel against the plain version: rel_err < 1e-5 (the
     reference's GEMM tolerance), and the three schedules bit-identical."""
-    need_cuda()
     m, k, n = shape
     gen = torch.Generator(device="cuda").manual_seed(m + k + n)
     a = torch.randn(m, k + a_offset, device="cuda", generator=gen).to(dtype)[:, a_offset:]
@@ -78,6 +88,64 @@ def test_cuda_gemm_matches_plain(shape, bk, b_kfast, with_c, a_offset, dtype):
         assert rel_err(out, want) < 1e-5
         assert torch.equal(out, outs[0])
     assert all(rk.launches[s] > before[s] for s in SCHEDULES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,bk,b_kfast,with_c,a_offset", GEMM_CASES)
+def test_cuda_gemm_matches_plain(shape, bk, b_kfast, with_c, a_offset, dtype):
+    need_cuda()
+    gemm_check(shape, bk, b_kfast, with_c, a_offset, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bk,b_kfast,with_c,a_offset", F32_GEMM_CASES)
+def test_cuda_gemm_f32_matches_plain(shape, bk, b_kfast, with_c, a_offset):
+    need_cuda()
+    gemm_check(shape, bk, b_kfast, with_c, a_offset, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_f32_wlbp_depth_limit():
+    """An f32 M > 4 wlbp chunk one slab deeper than a cluster of 8 CTAs
+    holds raises; base and wls take it."""
+    need_cuda()
+    a = torch.randn(64, 3200, device="cuda")
+    b = torch.randn(3200, 100, device="cuda")
+    blocks = GemmBlocks(128, 3104, 128)
+    with pytest.raises(ValueError, match="cluster of 8"):
+        rk.rasa_gemm(a, b, schedule="wlbp", blocks=blocks)
+    want = rk.rasa_gemm_plain(a, b, blocks=blocks)
+    for s in ("base", "wls"):
+        assert rel_err(rk.rasa_gemm(a, b, schedule=s, blocks=blocks), want) < 1e-5
+
+
+GEMM_DEVICE_KERNELS = ("decode_kernel", "tile_kernel", "wlbp_kernel", "sgemm_tile",
+                       "sgemm_wlbp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,want", [("base", "sgemm_tile"), ("wlbp", "sgemm_wlbp"),
+                                           ("wls", "sgemm_tile")])
+def test_cuda_gemm_f32_device_kernels_ran(schedule, want):
+    """An f32 M > 4 call records only its SIMT kernel in a profiler trace
+    (a warm-up step first: the tracer can drop the first records)."""
+    need_cuda()
+    from torch.profiler import ProfilerActivity, profile, schedule as steps
+    a = torch.randn(512, 1024, device="cuda")
+    b = torch.randn(1024, 1024, device="cuda")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=steps(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                rk.rasa_gemm(a, b, schedule=schedule, blocks=GemmBlocks(128, 512, 128))
+                torch.cuda.synchronize()
+                prof.step()
+        names = {e.key for e in prof.key_averages()}
+        ran = [d for d in GEMM_DEVICE_KERNELS if any(d in name for name in names)]
+        if ran:
+            break
+    assert ran == [want]
 
 
 @pytest.mark.cuda

@@ -133,6 +133,30 @@ def test_decode_shapes_match_reference(shape, bk, with_c, a_offset, b_kfast, sch
     assert rel_err(got.numpy(), want) < 1e-5
 
 
+# f32 at M > 4 (the SIMT kernels' path on the card): chunks deeper than
+# 1024, one ragged, embedding.T with A a column slice.  The CUDA kernels
+# meet the same depths on the card (test_torch_cuda.py).
+F32_DEEP_CASES = [((16, 1500, 200), 1280, False, True, 0),
+                  ((20, 2500, 130), 2048, True, False, 3)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("shape,bk,b_kfast,with_c,a_offset", F32_DEEP_CASES)
+def test_f32_deep_chunks_match_reference(shape, bk, b_kfast, with_c, a_offset, schedule):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n + bk)
+    a = rng.normal(size=(m, k + a_offset)).astype(np.float32)
+    b = rng.normal(size=(n, k) if b_kfast else (k, n)).astype(np.float32)
+    c = rng.normal(size=(m, n)).astype(np.float32) if with_c else None
+    tb = to_torch(b).T if b_kfast else to_torch(b)
+    got = rasa_matmul(to_torch(a)[:, a_offset:], tb, None if c is None else to_torch(c),
+                      schedule=schedule, blocks=GemmBlocks(128, bk, 128))
+    want = j_rasa_matmul(a[:, a_offset:], b.T if b_kfast else b, c, schedule=schedule,
+                         blocks=JGemmBlocks(128, bk, 128))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert rel_err(got.numpy(), want) < 1e-5
+
+
 @pytest.mark.parametrize("shape", [(8192, 8192, 8192), (128, 128, 128),
                                    (100000, 64, 64), (4, 2048, 151936),
                                    (512, 6144, 2048)])
