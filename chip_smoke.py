@@ -22,11 +22,12 @@ Phases, each of which raises (exit code != 0) when it fails:
   4. kernel times against their bound, the plain version and the one
      PyTorch call that computes the same function (torch.matmul, and
      scaled_dot_product_attention for flash; none exists for the SSD),
-     which the port never calls.  Flash is timed in bf16 at every layout
-     and S of the check (the tensor-core kernel) and once in f32 at the
-     qwen3-1.7b prefill layer (the SIMT kernel); each flash row names the
-     device kernel that ran, read from the trace's records ("unverified:
-     no trace" where no trace held one and the launch counter stands in).
+     which the port never calls.  Flash is timed in bf16 (the tensor-core
+     kernel) and in f32 (the SIMT kernel) at every layout and S of the
+     check, and in f32 at the qwen3-1.7b prefill layer's shape; each flash
+     row names the device kernel that ran, read from the trace's records
+     ("unverified: no trace" where no trace held one and the launch counter
+     stands in), and the device kernels SDPA's call ran (library_kernels).
      The GEMM rows of the kernels line give one qwen3-1.7b decode step of
      GEMMs (M = 4) and, under prefill_*, one prefill (M = 512; the head
      sees M = 4).  Each decode `time gemm` row splits each schedule's
@@ -48,7 +49,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      under the pallas_rasa engine (wls, wlbp, base) and the xla engine;
   6. the flash path: flash_mha on the q/k/v of every layer of a qwen3-1.7b
      prefill (batch 4, prompt 512), against the model's own attention,
-     every launch on the tensor-core kernel (flash_fwd_tc);
+     every launch on the tensor-core kernel (flash_fwd_tc); then the same
+     q/k/v cast to f32, every launch on the SIMT kernel, each output
+     against chunked_causal_attention in f32 at rel_err < 1e-5 (whole
+     output and rows from S/2 on);
   7. serving mamba2-130m and zamba2-2.7b at full width (batch 4, prompt
      512, 32 steps) under pallas_rasa (wls) and xla, and the SSD path:
      ssd_chunk_fused on the SSD inputs of every mamba2-130m layer of a
@@ -482,16 +486,22 @@ def check_flash(torch, fa, flash_mha) -> float:
     return worst
 
 
+#: the f32 row of phase 4 that stands for the SIMT kernel in the kernels line
+F32_LAYER_ROW = "qwen3-1.7b prefill layer shape"
+
+
 def time_flash(torch, fa, flash_mha) -> list[dict]:
-    """Phase 4, flash: bf16 at every layout and S of the check, then f32 at
-    the qwen3-1.7b prefill layer's shape (the SIMT kernel's time)."""
+    """Phase 4, flash: bf16 (the tensor-core kernel) and f32 (the SIMT
+    kernel) at every layout and S of the check, then f32 at the qwen3-1.7b
+    prefill layer's shape."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(5)
     rows = []
-    cases = [(arch, hq, hkv, d, s, torch.bfloat16)
+    cases = [(arch, hq, hkv, d, s, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
              for arch, hq, hkv, d in flash_layouts() for s in FLASH_SEQS]
     arch, hq, hkv, d = flash_layouts()[0]
-    cases.append((f"{arch} prefill layer shape", hq, hkv, d, SSM_PROMPT, torch.float32))
+    cases.append((F32_LAYER_ROW, hq, hkv, d, SSM_PROMPT, torch.float32))
     for arch, hq, hkv, d, s, dtype in cases:
         q, k, v = flash_inputs(torch, gen, hq, hkv, s, d, dtype)
         rows.append(flash_row(torch, fa, flash_mha, F, arch, q, k, v))
@@ -502,12 +512,12 @@ def time_flash(torch, fa, flash_mha) -> list[dict]:
 
 def timed_fields(torch, fns: dict) -> tuple[dict, dict]:
     """{"ms": ..., "plain_ms": ..., ...} device times of each fn, keyed as
-    in the kernels line, and "timer": the timer behind each; and the names
-    of the device records of the "ms" function's traces."""
+    in the kernels line, and "timer": the timer behind each; and the device
+    records of each function's traces, under the same keys."""
     out, timer, records = {}, {}, {}
     for key, fn in fns.items():
         out[key], _, timer[key], records[key] = device_ms(torch, fn, 3)
-    return {**out, "timer": timer}, records["ms"]
+    return {**out, "timer": timer}, records
 
 
 def record_split(records: dict, names, calls: int) -> dict:
@@ -538,6 +548,24 @@ def timed_kernels(records, names) -> list[str]:
     return sorted(n for n in names if any(n in r for r in records))
 
 
+def kernel_name(record: str) -> str:
+    """A device record's kernel name, without its return type, namespaces,
+    template arguments and parameters: "void at::native::(anonymous
+    namespace)::softmax_warp_forward<float, float, float, 9, false>(...)"
+    -> "softmax_warp_forward"."""
+    name = record.replace("(anonymous namespace)", "").removeprefix("void ")
+    for stop in "<(":
+        name = name.split(stop)[0]
+    return name.strip().split("::")[-1] or record
+
+
+def library_kernels(records) -> list[str]:
+    """The device kernels a library call ran, by name, from its traces'
+    records: whether SDPA was one fused kernel or a math path of GEMMs and a
+    softmax decides what its time is a yardstick of."""
+    return sorted({kernel_name(r) for r in records})
+
+
 def kernel_split(records: dict, names, calls: int) -> dict:
     """record_split by device kernel: each of ``names`` with its records'
     device ms per call, and the records of none of them under "other"."""
@@ -555,20 +583,24 @@ def flash_row(torch, fa, flash_mha, F, what, q, k, v) -> dict:
     b, hq, s, d = q.shape
     route = fa.flash_route(q.dtype, d)
     before = fa.launches[f"flash_{route}"]
-    t, records = timed_fields(torch, {
+    t, by_fn = timed_fields(torch, {
         "ms": lambda: flash_mha(q, k, v),
         "plain_ms": lambda: flash_plain(fa, q, k, v),
         "library_ms": lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=k.shape[1] != hq)})
-    ran = timed_kernels(records, (fa.KERNEL_NAMES["tc"], fa.KERNEL_NAMES["simt"]))
+    ran = timed_kernels(by_fn["ms"], (fa.KERNEL_NAMES["tc"], fa.KERNEL_NAMES["simt"]))
     kernel = want = fa.KERNEL_NAMES[route]
     if not ran and t["timer"]["ms"] == "events" and fa.launches[f"flash_{route}"] > before:
         kernel = "unverified: no trace"
     elif ran != [want]:
         raise AssertionError(f"flash {what} S={s} {dtype_name(q)}: traces recorded {ran}, "
                              f"expected [{want!r}]")
+    tile = {}
+    if route == "simt":   # the SIMT kernel's CTA tile follows D and the grid
+        tile["tile"] = dict(zip(("rows", "keys", "warps"), fa.simt_tile(b * hq, s, d)))
     return {"what": what, "B": b, "Hq": hq, "Hkv": k.shape[1], "S": s, "D": d,
-            "dtype": dtype_name(q), "device_kernel": kernel, **t,
+            "dtype": dtype_name(q), "device_kernel": kernel, **tile, **t,
+            "library_kernels": library_kernels(by_fn["library_ms"]),
             **bound_fields(*flash_bound_ms(b * hq, b * k.shape[1], s, s, d, True,
                                            dtype_name(q)))}
 
@@ -630,9 +662,46 @@ def flash_path(torch, fa, flash_mha, cfg) -> dict:
     row["max_abs_err"] = max((o.float() - c[-1].float()).abs().max().item()
                              for o, c in zip(outs, calls))
     print("time flash " + json.dumps(row))
+    del outs
+    f32 = flash_path_f32(torch, fa, flash_mha, layers, seen, group)
     return {"launches": launches,
             "device_kernels": {fa.KERNEL_NAMES["tc"]: counts["flash_tc"],
-                               fa.KERNEL_NAMES["simt"]: counts["flash_simt"]}, **row}
+                               fa.KERNEL_NAMES["simt"]: counts["flash_simt"]},
+            **row, **f32}
+
+
+def flash_path_f32(torch, fa, flash_mha, layers, seen, group: int) -> dict:
+    """Phase 6, f32: the same layers' q/k/v cast to f32 through flash_mha
+    (the SIMT route), counts from 0 just before and read just after, each
+    output against chunked_causal_attention on the same f32 tensors at the
+    reference's 1e-5, over the whole output and over the rows from S/2 on."""
+    n = len(seen)
+    fa.reset_launches()
+    outs = [flash_mha(q.float(), k[:, ::group].float().contiguous(),
+                      v[:, ::group].float().contiguous(), scale=kw["scale"])
+            for (q, k, v), kw, _ in seen]
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    if counts != {"flash": n, "flash_tc": 0, "flash_simt": n}:
+        raise AssertionError(f"flash path f32 launched {counts}, expected {n} on the SIMT route")
+    tol = FLASH_TOL["float32"]
+    errs, late, worst = [], [], 0.0
+    for got, ((q, k, v), kw, _) in zip(outs, seen):
+        want = layers.chunked_causal_attention(q.float(), k.float(), v.float(), scale=kw["scale"])
+        s = q.shape[2]
+        errs.append(rel_err(got, want))
+        late.append(rel_err(got[:, :, s // 2:], want[:, :, s // 2:]))
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"flash path f32: {counts['flash']} launches over {n} layers, by route {counts}; "
+          f"rel_err vs chunked_causal_attention (f32) max {max(errs):.3g}, rows from S/2 "
+          f"max {max(late):.3g} (< {tol}); per layer {[float(f'{e:.3g}') for e in errs]}")
+    if not (max(errs) < tol and max(late) < tol):
+        raise AssertionError(f"flash path f32: rel_err {max(errs)}, rows from S/2 "
+                             f"{max(late)}, >= {tol}")
+    return {"f32_launches": counts["flash"],
+            "f32_device_kernels": {fa.KERNEL_NAMES["tc"]: counts["flash_tc"],
+                                   fa.KERNEL_NAMES["simt"]: counts["flash_simt"]},
+            "f32_max_abs_err": worst}
 
 
 # ---------------------------------------------------------------------- SSD
@@ -725,9 +794,10 @@ def ssd_row(torch, sc, what, x, dt, a, b, c) -> dict:
     if sorted(k for k, v in launched.items() if v) != route or max(launched.values()) > 1:
         raise AssertionError(f"ssd {what} {dtype_name(x)}: one call launched {launched}, "
                              f"expected one each of {route}")
-    t, records = timed_fields(torch, {
+    t, by_fn = timed_fields(torch, {
         "ms": lambda: sc.ssd_chunk_fused(x, dt, a, b, c, chunk=SSD_CHUNK),
         "plain_ms": lambda: sc.ssd_chunk_plain(x, dt, a, b, c, chunk=SSD_CHUNK)})
+    records = by_fn["ms"]
     ran = timed_kernels(records, names)
     if ran != route and not (t["timer"]["ms"] == "events" and not ran):
         raise AssertionError(f"ssd {what} {dtype_name(x)}: traces recorded {ran}, "
@@ -1050,7 +1120,7 @@ def main() -> int:
         {k: v["prefill"] for k, v in step.items()}))
     gemm32 = time_gemm_f32_prefill(torch, rk, qwen)
     print("time per prefill, f32 (M=512, layer GEMMs, ms): " + json.dumps(gemm32))
-    time_flash(torch, fa, flash_mha)
+    flash32 = next(r for r in time_flash(torch, fa, flash_mha) if r["what"] == F32_LAYER_ROW)
     time_ssd(torch, sc)
     phase("serve qwen3-1.7b")
     results = serve(torch, rk, qwen, ("wls", "wlbp", "base", "xla"), PROMPT)
@@ -1102,6 +1172,14 @@ def main() -> int:
             **{field: row[field] for field in ("device_kernels", "by_record_ms")
                if field in row},
             "timer": row["timer"], "work": work})
+    next(k for k in kernels if k["name"] == fa.KERNEL_NAMES["flash"]).update({
+        "f32_launches": flash["f32_launches"], "f32_device_kernels": flash["f32_device_kernels"],
+        "f32_max_abs_err": flash["f32_max_abs_err"], "f32_ms": flash32["ms"],
+        "f32_plain_ms": flash32["plain_ms"], "f32_library_ms": flash32["library_ms"],
+        "f32_bound_ms": flash32["bound_ms"], "f32_bound_by": flash32["bound_by"],
+        "f32_library_kernels": flash32["library_kernels"],
+        "f32_work": "ms etc.: phase 4's f32 row at the qwen3-1.7b prefill layer's shape "
+                    "(the SIMT kernel); launches: phase 6's 28 layers cast to f32"})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

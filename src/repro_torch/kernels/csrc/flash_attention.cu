@@ -24,8 +24,12 @@
 // pair against (2 + 2 / group) * S * D elements moved.  In bf16 the bytes
 // over 3.35 TB/s bound a causal layer up to S near 1000 (885 at group 2),
 // and the operations over the tensor cores' 989 TFLOP/s above it.  In f32
-// the operations over the 67 TFLOP/s fp32 peak bound it at every S the
-// port drives (chip_smoke.py reports both sides).
+// the operations over the 67 TFLOP/s fp32 peak bound it from S near 160
+// at group 1, 120 at group 2 (chip_smoke.py reports both sides).  What sets the f32 kernel's pace
+// is shared memory, not the FMA pipes: a warp's 16-byte shared load takes
+// four of the SM's cycles however many lanes share its address, so a
+// thread tile of R x C products fed by float4s of four columns caps the
+// FMA pipes at 2 R C / (R + C) / 8 of peak: 67% at 8 x 4, 100% at 8 x 8.
 //
 // flash_fwd_tc (bf16): the FlashAttention-2 pattern on mma.sync.  A CTA
 // of 4 warps takes 64 * MT query rows of one bh, each warp 16 * MT rows;
@@ -52,194 +56,42 @@
 // error <= 2^-9) is the one the reference does not make; the row sum l
 // keeps the fp32 probabilities.  Padded rows are never written.
 //
-// flash_fwd_kernel (f32): a simple, exact SIMT fp32 FMA kernel.  One CTA
-// of 256 threads per (bh, 64-row Q tile) walks the 64-column K/V tiles up
-// to the diagonal; the TPU grid's sequential kv axis becomes this loop,
-// since CTAs run in no order.  Q (pre-scaled), the K tile and the V tile
-// are staged in shared memory as fp32; each thread owns a 4 x 4 block of
-// the score tile and a 4-row x (D / 16)-column block of the accumulator,
-// so both products reuse every shared-memory read 4 times.  Rows of a
-// score tile are reduced with warp shuffles over the 16 threads that share
-// them.  Tiles are issued heaviest first.
+// flash_fwd_kernel (f32): SIMT fp32 FMAs (TF32 would break the
+// reference's 1e-5).  A CTA takes BQ query rows of one bh, each warp its
+// own rows and each thread RM of them in both products, so a row's max,
+// sum and rescale stay in the lanes that share it (warp shuffles); the
+// grid issues the heaviest query tiles first.  Per head dim padded to KD
+// (thread tiles of S = Q K^T and of O, and the caps they leave):
+//   KD 32, 64: 128 rows of 4 warps, 64-key tiles; S 8 x 8, O 8 x 4 / 8 x 8
+//              (100%, 67% / 100%); two CTAs an SM;
+//   KD 80:     128 rows of 4 warps, 32-key tiles; S 4 x 8, O 4 x 20
+//              (67%, 83%); two CTAs an SM;
+//   KD 128:    64-key tiles; S 8 x 4, O 8 x 8 (67%, 100%); 64 rows of 4
+//              warps, two CTAs an SM (112 KB each), or, on grids of
+//              2 bh ceil(sq / 128) >= 3 SMs, 128 rows of 8 warps, one CTA
+//              an SM, which halves the K and V copies a row costs;
+//   KD 256:    64 rows of 8 warps, 64-key tiles; S 4 x 4, O 4 x 16 (50%,
+//              80%); one CTA an SM (208 KB).  8 x 16 accumulators spill.
+// Q (scaled once, in shared memory), one K tile and one V tile come by
+// 16-byte cp.async: K and V alternate through their one buffer each, K_{j+1}
+// in flight during tile j's softmax and P V, V_{j+1} during tile j + 1's
+// Q K^T, so two barriers a tile serve the ring; copies of whole tiles at
+// d == KD take no masks.  D not a multiple of 4 (33, 100), or unaligned
+// tensors, take element loads instead.  P goes from S's registers to the
+// warp's own rows of shared memory (a __syncwarp, no CTA barrier).  Each
+// score is one fmaf chain over the columns in order, of q * scale (rounded
+// as the plain version rounds it) and k, so logits in the thousands still
+// match it; probabilities are ex2((s - m) log2 e).  Only tiles that
+// straddle the diagonal or the padded end are masked, and a warp whose
+// rows all lie above a tile skips its products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 64, kBKV = 64, kThreads = 256;
 constexpr int kMaxD = 256;
-constexpr int kR = kBQ / 16;     // score / output rows per thread
-constexpr int kC = kBKV / 16;    // score columns per thread
-constexpr int kPPitch = kBKV + 1;
 constexpr float kNegInf = -1e30f;
-
-// Row pitch of the Q and K tiles: odd, so that the 16 rows a warp reads at
-// one column fall into distinct banks.
-__host__ __device__ inline int qk_pitch(int d) { return d | 1; }
-
-__host__ inline size_t smem_bytes(int d) {
-  return ((size_t)(kBQ + kBKV) * qk_pitch(d) + (size_t)kBKV * d + (size_t)kBQ * kPPitch) *
-         sizeof(float);
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// NU: output columns per thread, d <= 16 * NU.  Thread (tr, tc) owns score
-// entries (tr + 16 i, tc + 16 j) and output entries (tr + 16 i, tc + 16 u).
-template <int NU>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                 const float* __restrict__ V, float* __restrict__ O, int group, int sq, int skv, int skv_pad, int d,
-                 float scale, int causal) {
-  extern __shared__ float smem[];
-  const int pitch = qk_pitch(d);
-  float* Qs = smem;                    // [kBQ][pitch], q * scale
-  float* Ks = Qs + kBQ * pitch;        // [kBKV][pitch]
-  float* Vs = Ks + kBKV * pitch;       // [kBKV][d]
-  float* Ps = Vs + kBKV * d;           // [kBQ][kPPitch], probabilities
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest tiles first
-  const float* Qb = Q + (long long)bh * sq * d;
-  const float* Kb = K + (long long)(bh / group) * skv * d;
-  const float* Vb = V + (long long)(bh / group) * skv * d;
-
-  for (int idx = threadIdx.x; idx < kBQ * d; idx += kThreads) {
-    const int r = idx / d, c = idx % d, row = q0 + r;
-    Qs[r * pitch + c] = row < sq ? Qb[(long long)row * d + c] * scale : 0.f;
-  }
-
-  float m[kR], l[kR], acc[kR][NU];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[i][u] = 0.f;
-  }
-
-  // columns at or beyond skv_pad do not exist; causal rows stop at the diagonal
-  const int kv_end = causal ? min(skv_pad, min(q0 + kBQ, sq)) : skv_pad;
-  for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
-    __syncthreads();   // the previous tile's reads of Ks, Vs and Ps are done
-    for (int idx = threadIdx.x; idx < kBKV * d; idx += kThreads) {
-      const int r = idx / d, c = idx % d, col = k0 + r;
-      const bool real = col < skv;
-      Ks[r * pitch + c] = real ? Kb[(long long)col * d + c] : 0.f;
-      Vs[r * d + c] = real ? Vb[(long long)col * d + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kR][kC];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float qv[kR], kv[kC];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) qv[i] = Qs[(tr + 16 * i) * pitch + c];
-#pragma unroll
-      for (int j = 0; j < kC; ++j) kv[j] = Ks[(tc + 16 * j) * pitch + c];
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask, then the online-softmax update of each of this thread's rows
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int row = q0 + tr + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const int col = k0 + tc + 16 * j;
-        if (col >= skv_pad || (causal && col > row)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < NU; ++u) acc[i][u] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) Ps[(tr + 16 * i) * kPPitch + tc + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-    // acc += P V
-#pragma unroll 2
-    for (int j = 0; j < kBKV; ++j) {
-      float pv[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) pv[i] = Ps[(tr + 16 * i) * kPPitch + j];
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        const int c = tc + 16 * u;
-        if (c < d) {
-          const float vv = Vs[j * d + c];
-#pragma unroll
-          for (int i = 0; i < kR; ++i) acc[i][u] = fmaf(pv[i], vv, acc[i][u]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int row = q0 + tr + 16 * i;
-    if (row >= sq) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    float* orow = O + ((long long)bh * sq + row) * d;
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      const int c = tc + 16 * u;
-      if (c < d) orow[c] = acc[i][u] / li;
-    }
-  }
-}
-
-template <int NU>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
-           int skv, int skv_pad, int d, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  auto kernel = flash_fwd_kernel<NU>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), group, sq, skv, skv_pad, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
-             int skv, int skv_pad, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 64) return launch<4>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-  if (d <= 128) return launch<8>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-  return launch<16>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-}
 
 // ------------------------------------------------- bf16: the tensor cores
 
@@ -641,6 +493,339 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int g
 
 }  // namespace tc
 
+// ---------------------------------------------------- f32: the SIMT fp32 pipes
+
+namespace simt {
+
+// The CTA tile per padded head dim KD (a multiple of 4, >= d), in lanes.
+// LC lanes share each row: a thread's keys in S = Q K^T and its columns of
+// O.  A warp is LR = 32 / LC rows of lanes, and owns WR = LR * RM query rows
+// (RM a thread); NW warps make the CTA's BQ rows.  Thread (rl, cl) of warp
+// w owns rows w WR + rl + LR i (i < RM) in both products, so a row's max,
+// sum and rescale stay in its LC lanes; keys 4 cl + 4 LC h + e (h < RN / 4,
+// e < 4) of each BKV-key tile, and output columns 4 (cl + LC n) + e
+// (n < NC).  Every shared-memory read is a float4: Q's rows and P's rows as
+// four of their columns (one address a quarter-warp when LC >= 8), K's
+// rows as four of theirs, V's rows as four output columns.
+template <int KD_, int LC_, int RM_, int BKV_, int NW_>
+struct Cfg {
+  static constexpr int KD = KD_, LC = LC_, RM = RM_, BKV = BKV_, NW = NW_;
+  static constexpr int LR = 32 / LC, WR = LR * RM, BQ = NW * WR, T = 32 * NW;
+  static constexpr int RN = BKV / LC, NC = KD / (4 * LC), CPR = KD / 4;
+  // K's 16-byte units are stored permuted by (row / 4) % SWZ, so the keys a
+  // quarter-warp reads at one column fall on distinct banks.  With LC < 8 a
+  // quarter-warp reads two rows of Q and of P: pitches of 4 units mod 8
+  // keep them apart.
+  static constexpr int SWZ = LC < 8 ? LC : 8;
+  static constexpr int PP = LC < 8 ? BKV + 16 : BKV;   // P's row pitch, floats
+  static constexpr int SMEM = (BQ * KD + 2 * BKV * KD + BQ * PP) * (int)sizeof(float);
+  static constexpr int MIN_CTAS = T == 128 ? 2 : 1;
+  static_assert(LC >= 4 && 32 % LC == 0 && RN % 4 == 0 && KD % (4 * LC) == 0 &&
+                    CPR % SWZ == 0, "tile");
+  static_assert(LC >= 8 || (CPR % 8 == 4 && PP / 4 % 8 == 4), "two rows a quarter-warp");
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ const float4& f4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [row0, row0 + R) of a [rows][d] matrix -> dst [R][KD], zero past row
+// `rows` and column d; K's units swizzled.  Unit u of the tile (row u / CPR,
+// columns 4 (u % CPR) + 0-3) is thread u % T's.  vec: d % 4 == 0 and every
+// pointer 16-byte aligned, so each unit is one cp.async, and a tile of real
+// rows at d == KD takes no mask; otherwise element loads (any d).
+template <class C, int R, bool SWIZZLE>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows, int d,
+                                          bool vec) {
+  constexpr int N = R * C::CPR;
+  const bool whole = vec && d == C::KD && row0 + R <= rows;
+#pragma unroll
+  for (int it = 0; it < (N + C::T - 1) / C::T; ++it) {
+    const int u = threadIdx.x + it * C::T;
+    if (N % C::T != 0 && u >= N) break;
+    const int r = u / C::CPR, q = u % C::CPR, c = 4 * q, row = row0 + r;
+    float* s = dst + r * C::KD + 4 * (SWIZZLE ? q ^ (r >> 2 & (C::SWZ - 1)) : q);
+    const float* g = src + (long long)row * d + c;
+    if (whole) {
+      tc::cp_async16(s, g, 16);
+    } else if (vec) {
+      const bool in = row < rows && c < d;
+      tc::cp_async16(s, in ? g : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] = row < rows && c + e < d ? g[e] : 0.f;
+    }
+  }
+}
+
+// Qs *= scale over the units this thread loaded: its own copies are
+// complete, and visible to it, once its copy groups have landed.
+template <class C>
+__device__ __forceinline__ void scale_rows(float* Qs, float scale) {
+  constexpr int N = C::BQ * C::CPR;
+#pragma unroll
+  for (int it = 0; it < (N + C::T - 1) / C::T; ++it) {
+    const int u = threadIdx.x + it * C::T;
+    if (N % C::T != 0 && u >= N) break;
+    float4& x = reinterpret_cast<float4*>(Qs)[u];
+    x.x = __fmul_rn(x.x, scale);
+    x.y = __fmul_rn(x.y, scale);
+    x.z = __fmul_rn(x.z, scale);
+    x.w = __fmul_rn(x.w, scale);
+  }
+}
+
+// grid (bh, query tiles), heaviest tiles first; block T.  K and V tiles
+// alternate through one buffer each: K_{j+1} is copied during tile j's
+// softmax and P V, V_{j+1} during tile j + 1's Q K^T, so two barriers a
+// tile serve the ring.  P goes through this warp's own rows of shared
+// memory (a __syncwarp, no CTA barrier).  Each score is one fmaf chain
+// over the columns in order, of q * scale (rounded as the plain version
+// rounds it) and k, so the logits match it where they are large.
+template <class C>
+__global__ void __launch_bounds__(C::T, C::MIN_CTAS)
+flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                 const float* __restrict__ V, float* __restrict__ O, int group, int sq, int skv,
+                 int skv_pad, int d, float scale, int causal, int vec) {
+  constexpr int KD = C::KD, LC = C::LC, LR = C::LR, RM = C::RM, RN = C::RN, NC = C::NC;
+  constexpr int BKV = C::BKV, PP = C::PP, H = RN / 4;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* Qs = simt_smem;                // [BQ][KD], q * scale
+  float* Ks = Qs + C::BQ * KD;          // [BKV][KD], units swizzled
+  float* Vs = Ks + BKV * KD;            // [BKV][KD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = lane / LC, cl = lane % LC;
+  float* Ps = Vs + BKV * KD + warp * C::WR * PP;   // this warp's [WR][PP]
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int wrow = q0 + warp * C::WR;             // this warp's first row
+  const float* Qb = Q + (long long)bh * sq * d;
+  const float* Kb = K + (long long)(bh / group) * skv * d;
+  const float* Vb = V + (long long)(bh / group) * skv * d;
+
+  // columns at or beyond skv_pad do not exist; causal rows stop at the diagonal
+  const int kv_end = causal ? min(skv_pad, min(q0 + C::BQ, sq)) : skv_pad;
+  const int ntiles = (kv_end + BKV - 1) / BKV;
+
+  load_rows<C, C::BQ, false>(Qs, Qb, q0, sq, d, vec);
+  load_rows<C, BKV, true>(Ks, Kb, 0, skv, d, vec);
+  tc::cp_async_commit();
+  load_rows<C, BKV, false>(Vs, Vb, 0, skv, d, vec);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();   // Q and K_0 (this thread's units)
+  scale_rows<C>(Qs, scale);
+  __syncthreads();
+
+  const float* q_at = Qs + (warp * C::WR + rl) * KD;   // row i: + LR i KD
+  const float* k_at = Ks + 4 * cl * KD;                // key (h, e): + (4 LC h + e) KD
+  const int sw = cl & (C::SWZ - 1);                    // the swizzle of all our keys
+  float* p_at = Ps + rl * PP;                          // row i: + LR i PP
+  const float* v_at = Vs + 4 * cl;                     // unit n: + 4 LC n; key j: + j KD
+
+  float m[RM], l[RM], acc[RM][NC][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+  }
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BKV;
+    // some row of this warp sees the tile (warp-uniform)
+    const bool live = !causal || k0 <= wrow + C::WR - 1;
+    float s[RM][RN];
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int t = 0; t < RN; ++t) s[i][t] = 0.f;
+      // S = (q * scale) K^T
+#pragma unroll 4
+      for (int u = 0; u < C::CPR; ++u) {
+        float4 qv[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) qv[i] = f4(q_at + i * LR * KD + 4 * u);
+        const float* kp = k_at + 4 * (u ^ sw);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          float4 kv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kv[e] = f4(kp + (4 * LC * h + e) * KD);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int i = 0; i < RM; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[i][4 * h + e] = fmaf(lane_of(qv[i], c), lane_of(kv[e], c), s[i][4 * h + e]);
+        }
+      }
+    }
+    tc::cp_async_wait<0>();   // V_j (this thread's units)
+    __syncthreads();          // every warp is done with K_j; V_j has landed
+    if (j + 1 < ntiles) load_rows<C, BKV, true>(Ks, Kb, k0 + BKV, skv, d, vec);
+    tc::cp_async_commit();
+
+    if (live) {
+      // mask where the tile needs it, online softmax, P to this warp's rows
+      const bool mask = (causal && k0 + BKV - 1 > wrow) || k0 + BKV > skv_pad;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int row = wrow + rl + LR * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int t = 0; t < RN; ++t) {
+          if (mask) {
+            const int col = k0 + 4 * cl + 4 * LC * (t / 4) + t % 4;
+            if (col >= skv_pad || (causal && col > row)) s[i][t] = kNegInf;
+          }
+          mx = fmaxf(mx, s[i][t]);
+        }
+#pragma unroll
+        for (int o = 1; o < LC; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = tc::ex2((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int t = 0; t < RN; ++t) {
+          s[i][t] = tc::ex2((s[i][t] - m_new) * kLog2e);
+          rs += s[i][t];
+        }
+        l[i] = l[i] * alpha + rs;   // this lane's part of the row sum
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          *reinterpret_cast<float4*>(p_at + LR * i * PP + 4 * cl + 4 * LC * h) =
+              make_float4(s[i][4 * h], s[i][4 * h + 1], s[i][4 * h + 2], s[i][4 * h + 3]);
+      }
+      __syncwarp();
+
+      // O += P V
+#pragma unroll 2
+      for (int kb = 0; kb < BKV / 4; ++kb) {
+        float4 pv[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) pv[i] = f4(p_at + LR * i * PP + 4 * kb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 vv[NC];
+#pragma unroll
+          for (int n = 0; n < NC; ++n) vv[n] = f4(v_at + (4 * kb + e) * KD + 4 * LC * n);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float p = lane_of(pv[i], e);
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+              acc[i][n][0] = fmaf(p, vv[n].x, acc[i][n][0]);
+              acc[i][n][1] = fmaf(p, vv[n].y, acc[i][n][1]);
+              acc[i][n][2] = fmaf(p, vv[n].z, acc[i][n][2]);
+              acc[i][n][3] = fmaf(p, vv[n].w, acc[i][n][3]);
+            }
+          }
+        }
+      }
+    }
+    tc::cp_async_wait<0>();   // K_{j+1}
+    __syncthreads();          // every warp is done with V_j; K_{j+1} has landed
+    if (j + 1 < ntiles) load_rows<C, BKV, false>(Vs, Vb, k0 + BKV, skv, d, vec);
+    tc::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = wrow + rl + LR * i;
+    float li = l[i];
+#pragma unroll
+    for (int o = 1; o < LC; o <<= 1) li += __shfl_xor_sync(0xffffffffu, li, o);
+    li = fmaxf(li, 1e-30f);
+    if (row >= sq) continue;
+    float* orow = O + ((long long)bh * sq + row) * d;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int c = 4 * (cl + LC * n);
+      if (c >= d) continue;
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + c) =
+            make_float4(acc[i][n][0] / li, acc[i][n][1] / li, acc[i][n][2] / li,
+                        acc[i][n][3] / li);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) orow[c + e] = acc[i][n][e] / li;
+      }
+    }
+  }
+}
+
+template <class C>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
+           int skv, int skv_pad, int d, float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<C>;
+  // the shared memory above 48 KB, and the carveout that lets two CTAs
+  // share an SM, set once per device
+  static int set_device = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != set_device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) set_device = device;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (sq + C::BQ - 1) / C::BQ;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int vec = d % 4 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(o);
+  kernel<<<dim3(bh, tiles), C::T, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), group, sq, skv, skv_pad, d, scale, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+// fn(C{}) for the tile C that bh rows of sq queries at head dim d take:
+// the smallest instantiated head dim that holds d (the columns past it are
+// zero in shared memory), and at d <= 128 the 128-row tile of 8 warps, one
+// CTA an SM, where its grid fills the card one and a half times over
+// (2 bh tiles >= 3 SMs), else the 64-row tile of 4 warps, two an SM.
+template <class F>
+int with_tile(int bh, int sq, int d, F fn) {
+  if (d <= 32) return fn(Cfg<32, 8, 8, 64, 4>{});
+  if (d <= 64) return fn(Cfg<64, 8, 8, 64, 4>{});
+  if (d <= 80) return fn(Cfg<80, 4, 4, 32, 4>{});
+  if (d <= 128) {
+    using Large = Cfg<128, 16, 8, 64, 8>;
+    int sms = 0;
+    const cudaError_t err = tc::sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    if (2LL * bh * ((sq + Large::BQ - 1) / Large::BQ) >= 3LL * sms) return fn(Large{});
+    return fn(Cfg<128, 16, 8, 64, 4>{});
+  }
+  return fn(Cfg<256, 16, 4, 64, 8>{});
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int group, int sq,
+             int skv, int skv_pad, int d, float scale, int causal, cudaStream_t s) {
+  return with_tile(bh, sq, d, [&](auto c) {
+    return launch<decltype(c)>(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  });
+}
+
+}  // namespace simt
+
 }  // namespace
 
 extern "C" {
@@ -658,7 +843,21 @@ int flash_attention_fwd(int use_tc, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_tc) return tc::dispatch(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
-  return dispatch(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+  return simt::dispatch(q, k, v, o, bh, group, sq, skv, skv_pad, d, scale, causal, s);
+}
+
+// The f32 kernel's CTA tile for bh rows of sq queries at head dim d on the
+// current device: tile = {query rows, keys, warps}.  Returns a CUDA error,
+// or cudaErrorInvalidValue for a d the kernel does not take.
+int flash_simt_tile(int bh, int sq, int d, int* tile) {
+  if (d < 1 || d > kMaxD || bh < 1 || sq < 1) return (int)cudaErrorInvalidValue;
+  return simt::with_tile(bh, sq, d, [&](auto c) {
+    using C = decltype(c);
+    tile[0] = C::BQ;
+    tile[1] = C::BKV;
+    tile[2] = C::NW;
+    return 0;
+  });
 }
 
 const char* flash_error_string(int err) {

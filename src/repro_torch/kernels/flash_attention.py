@@ -18,6 +18,16 @@ does).  The kernels pick their own CTA tiles (``csrc/flash_attention.cu``);
 the padding costs them no copy.  ``flash_route`` picks the kernel: bf16 runs
 on the tensor cores (``flash_fwd_tc``), f32 on the SIMT fp32 kernel
 (``flash_fwd_kernel``).
+
+The f32 kernel is bound by shared-memory cycles rather than by the FMA
+pipes: a warp's 16-byte shared load costs four SM cycles whatever its
+broadcast, so it reads every operand as a float4 into thread tiles of up
+to 8 x 8 products, brings K and V through a ``cp.async`` ring, keeps each
+row's softmax in the lanes that own the row, and passes P through the
+warp's own shared memory.  Its tile follows the head dim and, at D <= 128,
+the grid: ``simt_tile`` says which (query rows, keys, warps) a call takes.
+Each score is one fmaf chain over the columns, of ``q * scale`` and k, as
+the plain version forms it, so large logits match it too.
 """
 
 from __future__ import annotations
@@ -131,6 +141,8 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.flash_attention_fwd.restype = i
+        lib.flash_simt_tile.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.flash_simt_tile.restype = i
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -139,6 +151,17 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _lib() -> ctypes.CDLL:
     return _typed(_build.load("flash_attention"))
+
+
+def simt_tile(bh: int, sq: int, d: int) -> tuple[int, int, int]:
+    """The CTA tile (query rows, keys, warps) that the f32 kernel takes for
+    ``bh`` rows of ``sq`` queries at head dim ``d`` on the current CUDA
+    device: it follows d, the grid and the SM count, and changes no number."""
+    lib = _lib()
+    tile = (ctypes.c_int * 3)()
+    _build.raise_if(lib.flash_simt_tile(bh, sq, d, tile), lib.flash_error_string,
+                    "flash_simt_tile")
+    return tuple(tile)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,8 +173,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     All three bf16 or all f32, contiguous, on one CUDA device, D <= 256.
     Raises on anything else, including a tensor on the CPU:
     ``ops.flash_mha`` dispatches.  ``block_kv`` sets the padded kv extent;
-    ``block_q`` changes nothing here (the kernel's q tile is fixed and
-    padded q rows are never written), and is kept for the reference's
+    ``block_q`` changes nothing here (the kernels choose their own q tiles
+    and padded q rows are never written), and is kept for the reference's
     signature.
     """
     _check(q, k, v, block_q, block_kv)

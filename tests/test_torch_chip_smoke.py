@@ -29,9 +29,44 @@ def test_busy_us_is_the_union_of_intervals(spans, want):
      ["flash_fwd_kernel"]),
     ({"flash_fwd_tc<64, 1>", "flash_fwd_kernel<4>"},
      ["flash_fwd_kernel", "flash_fwd_tc"]),
+    # the f32 kernel's records name its tile, a Cfg of the simt namespace
+    ({"void (anonymous namespace)::simt::flash_fwd_kernel<(anonymous namespace)::simt::"
+      "Cfg<128, 16, 8, 64, 8> >(float const*, float const*, float const*, float*, int, int, "
+      "int, int, int, float, int, int)", "Memset (Device)"}, ["flash_fwd_kernel"]),
 ])
 def test_timed_kernels_reads_record_names(records, want):
     assert chip_smoke.timed_kernels(records, ("flash_fwd_tc", "flash_fwd_kernel")) == want
+
+
+@pytest.mark.parametrize("record,want", [
+    ("void at::native::(anonymous namespace)::softmax_warp_forward<float, float, float, 9, "
+     "false, false>(float*, float const*, int, int, int, bool const*, int, bool)",
+     "softmax_warp_forward"),
+    ("fmha_cutlassF_f32_aligned_64x64_rf_sm80(PyTorchMemEffAttention::AttentionKernel<float, "
+     "cutlass::arch::Sm80, true, 64, 64, 64, true, true>::Params)",
+     "fmha_cutlassF_f32_aligned_64x64_rf_sm80"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8_kernel__5x_cublas",
+     "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8_kernel__5x_cublas"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD"),
+    ("void (anonymous namespace)::simt::flash_fwd_kernel<(anonymous namespace)::simt::"
+     "Cfg<80, 4, 4, 32, 4> >(float const*, float const*, float const*, float*, int, int, int, "
+     "int, int, float, int, int)", "flash_fwd_kernel"),
+])
+def test_kernel_name_strips_the_signature(record, want):
+    assert chip_smoke.kernel_name(record) == want
+
+
+def test_library_kernels_names_each_kernel_once():
+    """SDPA's math path in f32: GEMMs and a softmax, each named once."""
+    records = {"void at::native::(anonymous namespace)::softmax_warp_forward<float>(...)": 0.1,
+               "sm90_xmma_gemm_f32f32_tilesize128x128_cublas": 0.2,
+               "sm90_xmma_gemm_f32f32_tilesize64x64_cublas": 0.1,
+               "void at::native::elementwise_kernel<128, 2>(int, ...)": 0.01,
+               "void at::native::elementwise_kernel<128, 4>(int, ...)": 0.01}
+    assert chip_smoke.library_kernels(records) == [
+        "elementwise_kernel", "sm90_xmma_gemm_f32f32_tilesize128x128_cublas",
+        "sm90_xmma_gemm_f32f32_tilesize64x64_cublas", "softmax_warp_forward"]
+    assert chip_smoke.library_kernels({}) == []
 
 
 GEMM = ("decode_kernel", "tile_kernel")

@@ -173,11 +173,14 @@ def flash_both(q, k, v, causal, block=128):
 
 
 # (q heads, kv heads, S, D, causal): groups 1, 2 and 8; D 32, 64, 80, 128
-# and 256 (each head dim the tensor-core kernel is built for), and D 33 and
-# 100, which no 16-byte copy takes; S from 1 to 4096 (one key tile, one
-# past it, ragged); grids large enough for the tensor-core kernel's 128-row
-# CTAs (16/8 and 16/16 heads at 4096, 64/8 at 1024); non-causal inputs at
-# S 100, which the reference pads with 28 zero keys.
+# and 256 (each head dim both kernels are built for), and D 33 and 100,
+# which no 16-byte copy takes; S from 1 to 4096 (one key tile, one past it,
+# ragged); grids large enough for the tensor-core kernel's 128-row CTAs
+# (16/8 and 16/16 heads at 4096, 64/8 at 1024); non-causal inputs at S 100,
+# which the reference pads with 28 zero keys.  The f32 kernel's tiles
+# (F32_TILES below) change at D 32, 64, 80 and 128; at D <= 128 the
+# 128-row tile takes grids of 2 BH ceil(S / 128) >= 3 SMs (16/8 and 16/16
+# heads at 4096, 64/8 at 1024 here), the 64-row tile the rest.
 FLASH_CASES = [
     (4, 4, 128, 64, True), (8, 2, 257, 128, True), (8, 1, 300, 256, True),
     (4, 4, 200, 80, True), (4, 2, 256, 80, False),
@@ -206,19 +209,73 @@ def test_cuda_flash_matches_plain(hq, hkv, s, d, causal, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("hq,hkv,s,d", [(8, 2, 257, 128), (32, 8, 2048, 128),
                                          (32, 32, 1100, 80), (8, 1, 300, 256)])
-def test_cuda_flash_large_logits(hq, hkv, s, d):
+def test_cuda_flash_large_logits(hq, hkv, s, d, dtype, tol):
     """q and k scaled by 30: logits in the thousands, so each new key tile
     can raise a row's running max far above the last, and the rescale of
-    the accumulated sum and output must hold (bf16, tensor cores, 2e-2)."""
+    the accumulated sum and output must hold (bf16 on the tensor cores,
+    f32 on the SIMT kernel, at the reference's tolerances)."""
     need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(s * d)
-    q = (30 * torch.randn(2, hq, s, d, device="cuda", generator=gen)).to(torch.bfloat16)
-    k = (30 * torch.randn(2, hkv, s, d, device="cuda", generator=gen)).to(torch.bfloat16)
-    v = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q = (30 * torch.randn(2, hq, s, d, device="cuda", generator=gen)).to(dtype)
+    k = (30 * torch.randn(2, hkv, s, d, device="cuda", generator=gen)).to(dtype)
+    v = torch.randn(2, hkv, s, d, device="cuda", generator=gen).to(dtype)
     got, want = flash_both(q, k, v, True)
-    assert torch.isfinite(got.float()).all() and rel_err(got, want) < 2e-2
+    assert torch.isfinite(got.float()).all() and rel_err(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,d,causal", [(70, 70, 128, False), (150, 70, 128, True),
+                                              (90, 45, 80, True), (40, 40, 256, False)])
+def test_cuda_flash_f32_padded_keys(sq, skv, d, causal):
+    """skv not a multiple of the SIMT kernel's key tile, with a block_kv of
+    96 that pads past it: the rows that see the positions in [skv, 96)
+    (every row without the mask, rows from skv on under it) count them as
+    zero keys with zero values, as the plain version does (1e-5)."""
+    need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(sq + skv + d)
+    q = torch.randn(8, sq, d, device="cuda", generator=gen)
+    k = torch.randn(2, skv, d, device="cuda", generator=gen)
+    v = torch.randn(2, skv, d, device="cuda", generator=gen)
+    before = fa.launches["flash_simt"]
+    got = fa.flash_attention(q, k, v, causal=causal, block_kv=96)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_simt"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=128, block_kv=96)
+    assert torch.isfinite(got).all() and rel_err(got, want) < 1e-5
+
+
+# The f32 kernel's CTA tile (query rows, keys, warps) per padded head dim,
+# as csrc/flash_attention.cu chooses it; at D <= 128, grids of
+# 2 BH ceil(S / 128) >= 3 SMs take LARGE_F32_TILE instead.
+F32_TILES = {32: (128, 64, 4), 64: (128, 64, 4), 80: (128, 32, 4), 128: (64, 64, 4),
+             256: (64, 64, 8)}
+LARGE_F32_TILE = (128, 64, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s,side", [
+    (32, 300, None), (40, 300, None), (64, 300, None), (80, 300, None), (96, 257, "below"),
+    (128, 257, "below"), (128, 257, "above"), (128, 1000, "above"), (256, 300, None)])
+def test_cuda_flash_f32_tiles(d, s, side):
+    """Each tile the f32 kernel's dispatch can take, D below the padded
+    head dim included, and the D 128 grids just below and just above the
+    threshold of the 128-row tile: against the plain version at 1e-5."""
+    need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-s // 128)
+    bh = {None: 4, "below": (3 * sms - 1) // (2 * tiles), "above": -(-3 * sms // (2 * tiles))}[side]
+    want_tile = LARGE_F32_TILE if side == "above" else F32_TILES[min(k for k in F32_TILES if k >= d)]
+    assert fa.simt_tile(bh, s, d) == want_tile
+    gen = torch.Generator(device="cuda").manual_seed(bh + s + d)
+    q = torch.randn(bh, s, d, device="cuda", generator=gen)
+    k = torch.randn(1, s, d, device="cuda", generator=gen)
+    v = torch.randn(1, s, d, device="cuda", generator=gen)
+    got = fa.flash_attention(q, k, v, block_kv=128)
+    want = fa.flash_attention_plain(q, k, v, block_q=128, block_kv=128)
+    assert rel_err(got, want) < 1e-5
 
 
 @pytest.mark.cuda
