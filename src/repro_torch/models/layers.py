@@ -28,18 +28,29 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 # --------------------------------------------------------------------- rope
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The rotary frequencies theta^(-i / (hd/2)), [hd//2] f32.  Its base
+    is a tensor copied from the host, so the models compute it once, when
+    they are built, and never inside a step."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def rope_from_freqs(positions: torch.Tensor,
+                    freqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """sin/cos tables for standard RoPE.  positions: [B, S] -> [B, S, hd//2]."""
     if positions.dim() != 2:
         raise NotImplementedError("M-RoPE positions [3, B, S] wait for the VLM "
                                   "slice (ROADMAP queue 1, item 8)")
-    half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables for standard RoPE.  positions: [B, S] -> [B, S, hd//2]."""
+    return rope_from_freqs(positions, rope_freqs(head_dim, theta, positions.device))
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -84,7 +95,7 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if logit_softcap:
                 s_ij = logit_softcap * torch.tanh(s_ij / logit_softcap)
             causal = (qi * q_chunk + rows_in) >= (kj * kv_chunk + cols_in)
-            s_ij = torch.where(causal, s_ij, torch.tensor(-1e30, device=q.device))
+            s_ij = torch.where(causal, s_ij, -1e30)
             m_c = torch.maximum(m_p, s_ij.amax(dim=-1, keepdim=True))
             p = torch.exp(s_ij - m_c)
             alpha = torch.exp(m_p - m_c)
@@ -97,14 +108,15 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @dataclasses.dataclass
 class KVCache:
-    """Decode-time cache: k/v [B, Hkv, S_max, hd]; length = filled prefix.
+    """Decode-time cache: k/v [B, Hkv, S_max, hd]; length = filled prefix,
+    an int32 0-d tensor on the cache's device.
 
-    The tensors are written in place (a view into the model's stacked cache);
-    a new KVCache only carries the new length.
+    All three are updated in place (views into the model's stacked cache and
+    lengths), so that a replayed CUDA graph sees the new values.
     """
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: torch.Tensor
 
 
 def gqa_expand(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -151,20 +163,21 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             # in-place: the prompt's k/v fill the cache from position 0
             cache.k[:, :, :s] = k.to(cache.k.dtype)
             cache.v[:, :, :s] = v.to(cache.v.dtype)
-            cache = KVCache(cache.k, cache.v, s)
+            cache.length.fill_(s)
         out = chunked_causal_attention(q, gqa_expand(k, h), gqa_expand(v, h),
                                        scale=scale,
                                        q_chunk=engine.attn_q_chunk,
                                        kv_chunk=engine.attn_kv_chunk,
                                        logit_softcap=cfg.logit_softcap)
     else:
-        # single-token decode; in-place append at the cache's length, then
-        # grouped-query attention without expanding the cache
-        pos = cache.length
-        cache.k[:, :, pos:pos + s] = k.to(cache.k.dtype)
-        cache.v[:, :, pos:pos + s] = v.to(cache.v.dtype)
+        # single-token decode; in-place append at the cache's length (read
+        # on the device: no host sync), then grouped-query attention without
+        # expanding the cache
+        pos = cache.length + torch.arange(s, device=x.device)
+        cache.k.index_copy_(2, pos, k.to(cache.k.dtype))
+        cache.v.index_copy_(2, pos, v.to(cache.v.dtype))
+        cache.length.add_(s)
         ck, cv = cache.k, cache.v
-        cache = KVCache(ck, cv, pos + s)
         group = h // hkv
         qg = q.reshape(b, hkv, group * s, hd).float() * scale
         logits = torch.einsum("bhqd,bhkd->bhqk", qg, ck.float())
@@ -172,10 +185,10 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         smax = ck.shape[2]
         # queries are (group-major) the s new positions repeated per group
-        qpos = pos + torch.arange(s, device=x.device).repeat(group)
+        qpos = pos.repeat(group)
         mask = (torch.arange(smax, device=x.device)[None, None, None, :]
                 <= qpos[None, None, :, None])
-        logits = torch.where(mask, logits, torch.tensor(-1e30, device=x.device))
+        logits = torch.where(mask, logits, -1e30)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bhkd->bhqd", probs, cv.float()).to(x.dtype)
         out = out.reshape(b, h, s, hd)

@@ -84,7 +84,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     rep = h // g
     dtype = x.dtype
     mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    neg = torch.tensor(-1e30, device=x.device)
     state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
     ys = []
@@ -99,7 +98,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         # intra-chunk: scores[i,j] = C_i.B_j exp(seg_i - seg_j), i >= j
         cb = torch.einsum("bihn,bjhn->bhij", C_h.float(), B_h.float())
         segh = seg.transpose(1, 2)                                      # [b,h,q]
-        diff = torch.where(mask, segh[..., :, None] - segh[..., None, :], neg)
+        diff = torch.where(mask, segh[..., :, None] - segh[..., None, :], -1e30)
         w_ij = cb * torch.exp(diff)
         y_intra = torch.einsum("bhij,bjhp->bihp", w_ij.to(dtype).float(), xdt.float())
 

@@ -19,7 +19,8 @@ from torch import nn
 
 from ..config import EngineConfig, ModelConfig, RunConfig
 from .common import dtype_of, embed_init, he_init
-from .layers import KVCache, attention_block, mlp_block, rms_norm, rope_angles
+from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
+                     rope_from_freqs)
 from .ssm import SSMState, init_ssm_state, mamba2_block, ssm_dims
 from .transformer import (ParamBlock, _param, check_family, embed_tokens,
                           logits_from, positions_for)
@@ -93,9 +94,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 
 
 class HybridState(NamedTuple):
-    ssm: SSMState              # stacked [L, ...] leaves, written in place
+    """Updated in place by prefill and decode_step, so a replayed CUDA graph
+    sees the new values."""
+    ssm: SSMState              # stacked [L, ...] leaves
     attn: list[KVCache]        # one per shared-block application
-    position: int              # next position (uniform over the batch)
+    position: torch.Tensor     # next position, int32 0-d (uniform over the batch)
+    buffers: tuple[torch.Tensor, ...]   # stacked k, v [apps, ...] and lengths [apps]
+
+    def zero_(self) -> None:
+        """Back to the state init_decode_state made, in place."""
+        for t in (*self.ssm, *self.buffers, self.position):
+            t.zero_()
 
 
 def n_shared_apps(cfg: ModelConfig) -> int:
@@ -116,11 +125,9 @@ def run_backbone(model: "SSMLanguageModel", x: torch.Tensor, state: HybridState,
     """Mamba2 layers in order; hybrid: the shared block after every
     ``attn_every`` of them.  Each layer's conv window and SSM state are
     written back into the state's stacked buffers in place, and each
-    application's KV cache is filled in place.  Returns (x, the
-    per-application caches)."""
+    application's KV cache is filled in place.  Returns x."""
     cfg, engine = model.model, model.cfg.engine
     every = cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
-    caches = list(state.attn)
     for i, layer in enumerate(model.layers):
         st_l = SSMState(state.ssm.conv[i], state.ssm.ssm[i])
         out, new_st = mamba2_block(layer, rms_norm(x, layer["norm1"], cfg.rms_eps),
@@ -129,10 +136,9 @@ def run_backbone(model: "SSMLanguageModel", x: torch.Tensor, state: HybridState,
         st_l.conv.copy_(new_st.conv)
         st_l.ssm.copy_(new_st.ssm)
         if every and (i + 1) % every == 0:
-            app = i // every
-            x, caches[app] = _shared_block(model.shared_attn, x, cfg, engine, sin, cos,
-                                           caches[app])
-    return x, caches
+            x, _ = _shared_block(model.shared_attn, x, cfg, engine, sin, cos,
+                                 state.attn[i // every])
+    return x
 
 
 class SSMLanguageModel(nn.Module):
@@ -152,6 +158,9 @@ class SSMLanguageModel(nn.Module):
             self.lm_head = _param(params["lm_head"])
         if cfg.model.family == "hybrid":
             self.shared_attn = ParamBlock(params["shared_attn"])
+            m = cfg.model
+            self.register_buffer("rope_freqs", rope_freqs(
+                m.resolved_head_dim, m.rope_theta, self.device), persistent=False)
 
     @property
     def model(self) -> ModelConfig:
@@ -161,12 +170,11 @@ class SSMLanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
-    def _rope(self, batch: int, seq: int, offset: int):
-        m = self.model
-        if m.family != "hybrid":
+    def _rope(self, batch: int, seq: int, offset: int | torch.Tensor):
+        if self.model.family != "hybrid":
             return None, None
-        pos = positions_for(batch, seq, offset, self.device)
-        return rope_angles(pos, m.resolved_head_dim, m.rope_theta)
+        return rope_from_freqs(positions_for(batch, seq, offset, self.device),
+                               self.rope_freqs)
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype: torch.dtype | None = None) -> HybridState:
@@ -178,28 +186,35 @@ class SSMLanguageModel(nn.Module):
         shape = (apps, batch, m.n_kv_heads, max_seq, m.resolved_head_dim)
         k = torch.zeros(shape, dtype=dtype, device=self.device)
         v = torch.zeros(shape, dtype=dtype, device=self.device)
-        return HybridState(ssm, [KVCache(k[i], v[i], 0) for i in range(apps)], 0)
+        lengths = torch.zeros(apps, dtype=torch.int32, device=self.device)
+        position = torch.zeros((), dtype=torch.int32, device=self.device)
+        return HybridState(ssm, [KVCache(k[i], v[i], lengths[i]) for i in range(apps)],
+                           position, (k, v, lengths))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 state: HybridState) -> tuple[torch.Tensor, HybridState]:
         """Run the prompt [B, S] (S a multiple of the SSD chunk, or below
-        it) through the stack, updating the state in place; returns the
-        last position's logits [B, V] and the new state."""
+        it) through the stack at positions 0..S-1, as the reference does,
+        updating the state in place (the position advances by S); returns
+        the last position's logits [B, V] and the state."""
         b, s = tokens.shape
         x = embed_tokens(self.embedding, tokens)
-        sin, cos = self._rope(b, s, state.position)
-        x, caches = run_backbone(self, x, state, sin, cos)
+        sin, cos = self._rope(b, s, 0)
+        x = run_backbone(self, x, state, sin, cos)
         logits = logits_from(self, x[:, -1:])
-        return logits[:, 0], HybridState(state.ssm, caches, state.position + s)
+        state.position.add_(s)
+        return logits[:, 0], state
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor,
                     state: HybridState) -> tuple[torch.Tensor, HybridState]:
-        """One decode step: token [B] -> logits [B, V], new state."""
+        """One decode step: token [B] -> logits [B, V]; the state advances
+        in place by one position."""
         b = token.shape[0]
         x = embed_tokens(self.embedding, token[:, None])
         sin, cos = self._rope(b, 1, state.position)
-        x, caches = run_backbone(self, x, state, sin, cos)
+        x = run_backbone(self, x, state, sin, cos)
         logits = logits_from(self, x)
-        return logits[:, 0], HybridState(state.ssm, caches, state.position + 1)
+        state.position.add_(1)
+        return logits[:, 0], state

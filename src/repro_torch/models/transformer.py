@@ -19,7 +19,8 @@ from torch import nn
 
 from ..config import EngineConfig, ModelConfig, RunConfig
 from .common import dtype_of, embed_init, he_init, matmul
-from .layers import KVCache, attention_block, mlp_block, rms_norm, rope_angles
+from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
+                     rope_from_freqs)
 
 _LATER_FAMILIES = {"moe": "ROADMAP queue 1, item 8 (MoE)",
                    "vlm": "ROADMAP queue 1, item 8 (VLM)",
@@ -128,14 +129,12 @@ class DecoderBlock(ParamBlock):
 
 def run_layers(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                engine: EngineConfig, sin, cos,
-               caches: Optional[list[KVCache]] = None):
-    """The decoder stack as a Python loop; returns (x, new caches or None)."""
-    new_caches = []
+               caches: Optional[list[KVCache]] = None) -> torch.Tensor:
+    """The decoder stack as a Python loop; the caches, when given, are
+    filled in place."""
     for i, block in enumerate(blocks):
-        x, nc = block(x, cfg, engine, sin, cos,
-                      None if caches is None else caches[i])
-        new_caches.append(nc)
-    return x, (new_caches if caches is not None else None)
+        x, _ = block(x, cfg, engine, sin, cos, None if caches is None else caches[i])
+    return x
 
 
 # ---------------------------------------------------------------- embedding
@@ -146,8 +145,10 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embedding[tokens.long()]
 
 
-def positions_for(batch: int, seq: int, offset: int = 0,
+def positions_for(batch: int, seq: int, offset: int | torch.Tensor = 0,
                   device=None) -> torch.Tensor:
+    """[B, S] positions offset..offset+seq-1; ``offset`` may be a 0-d device
+    tensor (the decode position), read on the device."""
     pos = torch.arange(seq, device=device)[None, :] + offset
     return pos.expand(batch, seq)
 
@@ -165,8 +166,16 @@ def logits_from(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class DecodeState(NamedTuple):
-    caches: list[KVCache]      # one per layer, views of one stacked buffer
-    position: int              # next position (uniform over the batch)
+    """Updated in place by prefill and decode_step, so a replayed CUDA graph
+    sees the new values."""
+    caches: list[KVCache]      # one per layer, views of the stacked buffers
+    position: torch.Tensor     # next position, int32 0-d (uniform over the batch)
+    buffers: tuple[torch.Tensor, ...]   # stacked k, v [L, ...] and lengths [L]
+
+    def zero_(self) -> None:
+        """Back to the state init_decode_state made, in place."""
+        for t in (*self.buffers, self.position):
+            t.zero_()
 
 
 class DenseTransformer(nn.Module):
@@ -182,6 +191,9 @@ class DenseTransformer(nn.Module):
         self.final_norm = _param(params["final_norm"])
         if not cfg.model.tie_embeddings:
             self.lm_head = _param(params["lm_head"])
+        m = cfg.model
+        self.register_buffer("rope_freqs", rope_freqs(
+            m.resolved_head_dim, m.rope_theta, self.device), persistent=False)
 
     @property
     def model(self) -> ModelConfig:
@@ -191,10 +203,9 @@ class DenseTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
-    def _rope(self, batch: int, seq: int, offset: int):
-        m = self.model
-        pos = positions_for(batch, seq, offset, self.device)
-        return rope_angles(pos, m.resolved_head_dim, m.rope_theta)
+    def _rope(self, batch: int, seq: int, offset: int | torch.Tensor):
+        return rope_from_freqs(positions_for(batch, seq, offset, self.device),
+                               self.rope_freqs)
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype: torch.dtype | None = None) -> DecodeState:
@@ -203,29 +214,36 @@ class DenseTransformer(nn.Module):
         dtype = dtype or dtype_of(m)
         k = torch.zeros(shape, dtype=dtype, device=self.device)
         v = torch.zeros(shape, dtype=dtype, device=self.device)
-        return DecodeState([KVCache(k[i], v[i], 0) for i in range(m.n_layers)], 0)
+        lengths = torch.zeros(m.n_layers, dtype=torch.int32, device=self.device)
+        position = torch.zeros((), dtype=torch.int32, device=self.device)
+        return DecodeState([KVCache(k[i], v[i], lengths[i]) for i in range(m.n_layers)],
+                           position, (k, v, lengths))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
-        """Run the prompt [B, S] through the stack, filling the caches in
-        place; returns the last position's logits [B, V] and the new state."""
+        """Run the prompt [B, S] through the stack, filling the caches and
+        setting the position in place; returns the last position's logits
+        [B, V] and the state."""
         b, s = tokens.shape
         x = embed_tokens(self.embedding, tokens)
         sin, cos = self._rope(b, s, 0)
-        x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
-                               sin, cos, state.caches)
+        x = run_layers(self.layers, x, self.model, self.cfg.engine, sin, cos,
+                       state.caches)
         logits = logits_from(self, x[:, -1:])
-        return logits[:, 0], DecodeState(caches, s)
+        state.position.fill_(s)
+        return logits[:, 0], state
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor,
                     state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
-        """One decode step: token [B] -> logits [B, V], new state."""
+        """One decode step: token [B] -> logits [B, V]; the state advances
+        in place by one position."""
         b = token.shape[0]
         x = embed_tokens(self.embedding, token[:, None])
         sin, cos = self._rope(b, 1, state.position)
-        x, caches = run_layers(self.layers, x, self.model, self.cfg.engine,
-                               sin, cos, state.caches)
+        x = run_layers(self.layers, x, self.model, self.cfg.engine, sin, cos,
+                       state.caches)
         logits = logits_from(self, x)
-        return logits[:, 0], DecodeState(caches, state.position + 1)
+        state.position.add_(1)
+        return logits[:, 0], state

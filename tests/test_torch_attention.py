@@ -58,7 +58,8 @@ def test_attention_block_prefill_then_decode(dtype, arch, softcap, kind):
     jcache = jl.KVCache(jnp.zeros(shape, jnp.dtype(dtype)),
                         jnp.zeros(shape, jnp.dtype(dtype)), jnp.asarray(0, jnp.int32))
     tcache = tl.KVCache(torch.zeros(shape, dtype=getattr(torch, dtype)),
-                        torch.zeros(shape, dtype=getattr(torch, dtype)), 0)
+                        torch.zeros(shape, dtype=getattr(torch, dtype)),
+                        torch.zeros((), dtype=torch.int32))
 
     # prefill: without a cache (training form), and writing the cache
     want0, _ = j_attention_block(jp, jnp.asarray(x[:, :s]), m, je,

@@ -178,3 +178,13 @@ def test_kernel_split_without_times():
     assert got == {"ssd_state_simt": None, "ssd_out_simt": None,
                    "other": {"void (anonymous namespace)::ssd_state_pass(float*, float const*, "
                              "float*, int, int, int)": None}}
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([("a", 0.0, 10.0)], 0.0),
+    ([("a", 0.0, 2.0), ("b", 8.0, 10.0)], 0.6),
+    ([("a", 0.0, 6.0), ("b", 4.0, 10.0)], 0.0),          # overlap counted once
+    ([("b", 5.0, 6.0), ("a", 0.0, 1.0), ("c", 9.0, 10.0)], 0.7),
+])
+def test_idle_share_is_the_idle_part_of_the_window(spans, want):
+    assert chip_smoke.idle_share(spans) == pytest.approx(want)
