@@ -8,11 +8,14 @@ Phases, each of which raises (exit code != 0) when it fails:
   2. the build of every CUDA source under src/repro_torch/kernels/csrc/,
      one nvcc per source, all at once;
   3. every kernel against its plain PyTorch version, on the card:
-     the RASA GEMM at the GEMM shapes of qwen3-1.7b, mamba2-130m and
-     zamba2-2.7b (tied heads through embedding.T) and at ragged shapes, bf16
-     and f32, and at f32-only M > 4 shapes of the SIMT kernels (wlbp chunks
-     2048 and 3072 deep, M 300 across a cluster, A a column slice), with
-     and without C: rel_err < 1e-5, schedules bit-identical;
+     the RASA GEMM at every GEMM shape of the served models (qwen3-1.7b,
+     mamba2-130m, zamba2-2.7b, granite-moe-3b-a800m, musicgen-large,
+     qwen2-vl-72b, grok-1-314b; tied heads through embedding.T, untied
+     ones row-major, granite's N 49155 with rows not a multiple of 8) at
+     M = batch and at the prefill's M, and at ragged shapes, bf16 and f32,
+     and at f32-only M > 4 shapes of the SIMT kernels (wlbp chunks 2048
+     and 3072 deep, M 300 across a cluster, A a column slice), with and
+     without C: rel_err < 1e-5, schedules bit-identical;
      flash attention through flash_mha at the head layouts of qwen3-1.7b,
      zamba2-2.7b and gemma-2b, S in {128, 257, 4096}, batch 4: rel_err
      < 2e-2 in bf16, < 1e-5 in f32, over the whole output and over the
@@ -68,7 +71,21 @@ Phases, each of which raises (exit code != 0) when it fails:
      prefill, against ssd_chunked in f32, each of the f32 route's device
      kernels launched once per layer; then the SSD kernel's time on one
      real layer's inputs, on random ones and on mixes of the two, with the
-     SM clock and board power sampled while it runs.
+     SM clock and board power sampled while it runs;
+  8. serving granite-moe-3b-a800m and musicgen-large at full width and
+     depth (batch 4, prompt 128, 32 steps; musicgen's tokens [B, S, 4])
+     under pallas_rasa (wls) and xla, graphed and eager as in phase 5,
+     beside each model's decode floor (its weight bytes per step over the
+     HBM rate); for granite also the entries the expert capacity dropped
+     in a prefill, and one decode step's device time split into the RASA
+     GEMM records (graphed trace), the expert products, the router and the
+     dispatch/combine (each MoE piece timed alone on the step's own
+     inputs); then the four untied heads timed at M 4.  One timed
+     generation per session (phases 5 and 7 take the median of three);
+  9. serving qwen2-vl-72b (8 of 80 layers) and grok-1-314b (2 of 64) at
+     full width and reduced depth, under wls graphed and eager (bit for
+     bit; one timed generation each), with the xla engine's prefill logits
+     beside wls's.
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -104,6 +121,13 @@ GEMM_RECORDS = ("decode_kernel", "tile_kernel", "wlbp_kernel", "sgemm_tile", "sg
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # tests/test_kernels.py:112,121
 SSD_TOL = {"bfloat16": 3e-2, "float32": 2e-5}     # tests/test_ssd_kernel.py:55,37
 SERVE_TOL = 2e-2               # kernel vs xla engine, f32 weights
+PREDICTION_FAMILIES = (
+    "graphed decode ms/step: granite-moe-3b-a800m wls 8-20 (floor 1.97), xla 8-22; "
+    "musicgen-large wls 8-20 (floor 1.44), xla 8-22; qwen2-vl-72b (8 layers) wls 8-20; "
+    "grok-1-314b (2 layers) wls 8-20. graphed prefill ms: granite 15-40, musicgen 15-45, "
+    "qwen2-vl 30-90, grok 10-25. Device idle share of a graphed decode step 0.05-0.35. "
+    "granite's decode step: expert products 2-5 ms, dispatch/combine 1-4 ms, RASA GEMMs "
+    "0.5-1.5 ms. Graphed = eager bit for bit; wls vs xla within 0.15.")
 PREDICTION = ("graphed decode ms/step: qwen3-1.7b wls 7-15, base/wlbp 9-17, xla 10-20; "
               "mamba2-130m 2-8; zamba2-2.7b wls 10-20, xla 15-30. graphed prefill ms: "
               "qwen3-1.7b wls 18-30; mamba2-130m 5-15; zamba2-2.7b wls 60-200. Device idle "
@@ -117,6 +141,10 @@ SSD_SEQS = (512, 1024)
 SSD_CHUNK = 256
 FLASH_ARCHS = ("qwen3-1.7b", "zamba2-2.7b", "gemma-2b")
 SSD_ARCHS = ("mamba2-130m", "zamba2-2.7b")
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "musicgen-large")     # phase 8, full depth
+REDUCED = {"qwen2-vl-72b": 8, "grok-1-314b": 2}               # phase 9: layers kept
+# device records of the library's GEMM kernels (cuBLAS, CUTLASS) by name
+LIBRARY_GEMM_RECORDS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 SOURCES = {"gemm": "src/repro_torch/kernels/csrc/rasa_gemm.cu",
            "flash": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "ssd": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
@@ -250,27 +278,32 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float, str, dict]:
 
 
 def layer_shapes(m) -> list[tuple[int, int, int]]:
-    """(K, N, count per forward) of one model's GEMMs, without the head:
-    each decoder layer's for the dense family; each Mamba2 layer's and each
-    application of the hybrid's shared attention + MLP block for ssm/hybrid."""
+    """(K, N, count per forward) of one model's RASA GEMMs, without the
+    head: each decoder layer's attention and MLP projections (dense, vlm,
+    audio; the MoE's attention only: its router and experts are library
+    products, as in the reference); each Mamba2 layer's and each
+    application of the hybrid's shared attention + MLP block for
+    ssm/hybrid."""
     d, hd, f = m.d_model, m.resolved_head_dim, m.d_ff
-    attn_mlp = [(d, m.n_heads * hd, 1), (d, m.n_kv_heads * hd, 2),
-                (m.n_heads * hd, d, 1), (d, f, 2), (f, d, 1)]
-    if m.family == "dense":
-        return [(k, n, c * m.n_layers) for k, n, c in attn_mlp]
+    attn = [(d, m.n_heads * hd, 1), (d, m.n_kv_heads * hd, 2), (m.n_heads * hd, d, 1)]
+    mlp = [(d, f, 2 if m.act in ("swiglu", "geglu") else 1), (f, d, 1)]
+    if m.family in ("dense", "vlm", "audio", "moe"):
+        per_layer = attn if m.family == "moe" else attn + mlp
+        return [(k, n, c * m.n_layers) for k, n, c in per_layer]
     s = m.ssm
     d_inner = s.expand * d
     proj = 2 * d_inner + 2 * s.n_groups * s.d_state + d_inner // s.head_dim
     shapes = [(d, proj, m.n_layers), (d_inner, d, m.n_layers)]
     apps = m.n_layers // m.hybrid.attn_every if m.family == "hybrid" else 0
-    return shapes + [(k, n, c * apps) for k, n, c in attn_mlp if apps]
+    return shapes + [(k, n, c * apps) for k, n, c in attn + mlp if apps]
 
 
 def gemm_launches_per_forward(m, bk: int) -> dict[str, int]:
     """RASA launches of one forward (prefill or decode step) per schedule:
     one per GEMM for wls, one per k-chunk of bk for base/wlbp; head included."""
+    from repro_torch.models.transformer import head_width
     chunks = lambda k: -(-k // bk)
-    shapes = layer_shapes(m) + [(m.d_model, m.vocab, 1)]
+    shapes = layer_shapes(m) + [(m.d_model, head_width(m), 1)]
     per_chunk = sum(c * chunks(k) for k, _, c in shapes)
     return {"wls": sum(c for _, _, c in shapes), "base": per_chunk, "wlbp": per_chunk}
 
@@ -278,11 +311,14 @@ def gemm_launches_per_forward(m, bk: int) -> dict[str, int]:
 def check_gemm(torch, rk, configs) -> dict[str, float]:
     """Phase 3, GEMM: every schedule against the plain version; returns the
     max abs error per schedule.  Each model's distinct (K, N) at M = batch
-    (decode) and M = batch * prompt (prefill), its tied head at M = batch
-    and 512, and ragged shapes, in bf16 and f32; then f32-only M > 4 cases
-    of the SIMT kernels: wlbp chunks deeper than the bf16 block holds (2048,
-    and 3072, the deepest a cluster of 8 holds), a ragged M across a
-    cluster, and embedding.T with A a column slice (unaligned rows)."""
+    (decode) and M = batch * prompt (prefill), its head at M = batch and
+    512 (a tied head reads embedding.T in place, an untied one is row-major
+    [d, head_width]), and ragged shapes, in bf16 and f32; then f32-only
+    M > 4 cases of the SIMT kernels: wlbp chunks deeper than the bf16 block
+    holds (2048, and 3072, the deepest a cluster of 8 holds), a ragged M
+    across a cluster, and embedding.T with A a column slice (unaligned
+    rows)."""
+    from repro_torch.models.transformer import head_width
     main = rk.GemmBlocks(configs[0].engine.block_m, configs[0].engine.block_k,
                          configs[0].engine.block_n)
     small = rk.GemmBlocks(128, 128, 128)
@@ -291,13 +327,13 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
     cases, seen = [], set()
     for cfg in configs:
         m = cfg.model
-        prefill_m = BATCH * (PROMPT if m.family == "dense" else SSM_PROMPT)
-        for k, n, _ in layer_shapes(m):
-            for mm in (BATCH, prefill_m):
-                if (mm, k, n) not in seen:
-                    seen.add((mm, k, n))
-                    cases.append((mm, k, n, False, main))
-        cases += [(mm, m.d_model, m.vocab, True, main) for mm in (BATCH, 512)]
+        prefill_m = BATCH * (SSM_PROMPT if m.family in ("ssm", "hybrid") else PROMPT)
+        head = (m.d_model, head_width(m), m.tie_embeddings)
+        for k, n, transposed in [(k, n, False) for k, n, _ in layer_shapes(m)] + [head]:
+            for mm in (BATCH, 512 if (k, n, transposed) == head else prefill_m):
+                if (mm, k, n, transposed) not in seen:
+                    seen.add((mm, k, n, transposed))
+                    cases.append((mm, k, n, transposed, main))
     cases += [(1, 256, 256, False, small), (257, 130, 100, False, small),
               (130, 260, 140, False, small), (3, 130, 100, False, small),
               (4, 260, 140, True, small),
@@ -317,7 +353,7 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
         for dtype in dtypes:
             # offset: A as a column slice of a wider tensor (rows not 16-byte aligned)
             a = rnd(mm, k + offset).to(dtype)[:, offset:]
-            # the tied head reads embedding.T in place
+            # a tied head reads embedding.T in place
             b = rnd(n, k).to(dtype).T if transposed else rnd(k, n).to(dtype)
             for c in (None, rnd(mm, n)):
                 want = rk.rasa_gemm_plain(a, b, c, blocks=blocks)
@@ -1086,6 +1122,7 @@ def graph_contents(torch, model, batch: int, max_seq: int) -> dict:
     programmatic dependent launch leaves in a graph (the chained k-chunks
     of base and wlbp), "full" an ordinary one."""
     import ctypes
+    from repro_torch.models.transformer import token_shape
     cu = ctypes.CDLL("libcuda.so.1")
 
     def call(fn, *args):
@@ -1094,7 +1131,7 @@ def graph_contents(torch, model, batch: int, max_seq: int) -> dict:
             raise RuntimeError(f"{fn} failed: CUresult {err}")
 
     state = model.init_decode_state(batch, max_seq)
-    tok = torch.zeros(batch, dtype=torch.int32, device=DEV)
+    tok = torch.zeros(token_shape(model.model, batch), dtype=torch.int32, device=DEV)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1138,7 +1175,7 @@ def graph_contents(torch, model, batch: int, max_seq: int) -> dict:
             "gemm_kernels": gemm, "other_kernels": other, "edges": edges}
 
 
-def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
+def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 3) -> dict:
     """Serve ``prompts`` under each engine of ``names`` through two
     ServeSessions: eager (eager=True) and graphed (the default on the
     card), one each for all the engines (the graphs are keyed by the model's
@@ -1147,19 +1184,21 @@ def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
     counts from 0 just before and read just after (it captures prefill and
     decode, one warm-up forward and one captured forward each, and replays
     them); the eager session's generate, counted the same way; then
-    timed_generation three times on each session (prefill logits and
+    timed_generation ``repeats`` times on each session (prefill logits and
     tokens must equal the eager ones bit for bit), serve_trace on each
     (the graphed replays' GEMM records per forward must equal the counted
     launches per forward), and graph_contents of the decode step."""
+    from repro_torch.models.transformer import prompt_shape
     from repro_torch.serving import ServeSession
     m = cfg.model
-    b, s = prompts.shape
+    b, s = prompts.shape[:2]
     max_seq = s + STEPS
     per_forward = gemm_launches_per_forward(m, cfg.engine.block_k)
     sessions = {"eager": ServeSession(model, max_seq=max_seq, device=DEV, eager=True),
                 "graphed": ServeSession(model, max_seq=max_seq, device=DEV)}
     results = {}
     for name in names:
+        t_engine = time.perf_counter()
         model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, name))
         rasa = name != "xla"
         eager, graphed = sessions["eager"], sessions["graphed"]
@@ -1183,7 +1222,8 @@ def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
         eager_tokens = eager.generate(prompts, STEPS)
         torch.cuda.synchronize()
         eager_counts = dict(rk.launches)
-        if tokens.shape != (b, STEPS) or tokens.min() < 0 or tokens.max() >= m.vocab:
+        if (tokens.shape != prompt_shape(m, b, STEPS) or tokens.min() < 0
+                or tokens.max() >= m.vocab):
             raise AssertionError(f"{m.name} {name}: bad tokens {tuple(tokens.shape)}")
         for what, got, n in (("graphed (warm-up + capture)", counts, 4),
                              ("eager", eager_counts, 1 + STEPS)):
@@ -1191,7 +1231,7 @@ def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
             if got != expect:
                 raise AssertionError(f"{m.name} {name} {what}: launches {got}, expected {expect}")
 
-        runs = {mode: [timed_generation(torch, sessions[mode], prompts) for _ in range(3)]
+        runs = {mode: [timed_generation(torch, sessions[mode], prompts) for _ in range(repeats)]
                 for mode in ("eager", "graphed")}
         logits = runs["eager"][0]["logits"]
         for mode, rs in runs.items():
@@ -1237,7 +1277,7 @@ def serve_engines(torch, rk, cfg, model, prompts, names) -> dict:
               f"{traces['graphed']['decode']['idle_share']:.4f}); eager prefill "
               f"{res['eager']['prefill_ms']:.3f} ms, decode "
               f"{res['eager']['decode_ms_per_step']:.3f} ms/step; graphed = eager bit for "
-              f"bit (prefill logits, tokens)")
+              f"bit (prefill logits, tokens); {time.perf_counter() - t_engine:.1f} s")
     return results
 
 
@@ -1266,11 +1306,11 @@ def compare_engines(torch, cfg, results, prompts, build_model) -> None:
         raise AssertionError(f"{m.name}: f32 kernel engine vs xla rel_err {err32} >= {SERVE_TOL}")
 
 
-def serve(torch, rk, cfg, names, prompt: int, ssd=None) -> dict:
-    """Phases 5 and 7: one model at full width through ServeSession under
-    ``names``; schedules bit-identical; kernel vs xla logits.  ``ssd``: run
-    the SSD path on this model's prefill too (mamba2-130m)."""
+def build_served(torch, cfg, prompt: int):
+    """The model of ``cfg`` (random weights from seed 0) and its prompts
+    [BATCH, prompt] ([BATCH, prompt, n_codebooks] for audio) from seed 3."""
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import prompt_shape
     m = cfg.model
     t0 = time.perf_counter()
     model = build_model(cfg, device=DEV, seed=0)
@@ -1278,9 +1318,21 @@ def serve(torch, rk, cfg, names, prompt: int, ssd=None) -> dict:
     print(f"serve: built {m.name} ({m.n_layers} layers, d={m.d_model}, vocab={m.vocab}) "
           f"in {time.perf_counter() - t0:.3f} s")
     gen = torch.Generator(device=DEV).manual_seed(3)
-    prompts = torch.randint(0, m.vocab, (BATCH, prompt), device=DEV, generator=gen,
-                            dtype=torch.int32)
-    results = serve_engines(torch, rk, cfg, model, prompts, names)
+    prompts = torch.randint(0, m.vocab, prompt_shape(m, BATCH, prompt), device=DEV,
+                            generator=gen, dtype=torch.int32)
+    return model, prompts
+
+
+def serve(torch, rk, cfg, names, prompt: int, path=None, repeats: int = 3) -> dict:
+    """Phases 5, 7 and 8: one model at full width through ServeSession
+    under ``names`` (serve_engines, ``repeats`` timed generations a
+    session); schedules bit-identical; kernel vs xla logits.
+    ``path(model, prompts, results)``: a further phase on this model (the
+    SSD path on mamba2-130m's prefill, granite's MoE), kept under "path"."""
+    from repro_torch.models import build_model
+    m = cfg.model
+    model, prompts = build_served(torch, cfg, prompt)
+    results = serve_engines(torch, rk, cfg, model, prompts, names, repeats)
     ref = results["wls"]
     for s in names:
         if s in rk.SCHEDULES and s != "wls":
@@ -1289,13 +1341,174 @@ def serve(torch, rk, cfg, names, prompt: int, ssd=None) -> dict:
             if not torch.equal(results[s]["tokens"], ref["tokens"]):
                 raise AssertionError(f"{s}: tokens differ from wls")
             print(f"serve {m.name}: {s} bit-identical to wls (prefill logits and tokens)")
-    if ssd is not None:
-        model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, "xla"))
-        results["ssd_path"] = ssd_path(torch, ssd, model, prompts)
+    if path is not None:
+        results["path"] = path(model, prompts, results)
     del model
     compare_engines(torch, cfg, results, prompts, build_model)
     for r in results.values():
         r.pop("logits", None)
+    return results
+
+
+def decode_floor_ms(model) -> tuple[float, float]:
+    """(weight bytes a decode step reads, their time at the HBM rate, ms):
+    every parameter but the embedding, of which a step reads B rows (the
+    embedding counts when the head is tied to it).  The MoE's experts all
+    count: at decode every group holds one token and one slot per expert,
+    so the expert products read all of them."""
+    m = model.model
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not m.tie_embeddings:
+        total -= model.embedding.numel() * model.embedding.element_size()
+    return total, total / HBM_BYTES_PER_S * 1e3
+
+
+def is_library_gemm(record: str) -> bool:
+    """Whether a device record is a GEMM kernel of the library (not one of
+    csrc/rasa_gemm.cu's)."""
+    return (any(n in record.lower() for n in LIBRARY_GEMM_RECORDS)
+            and not any(g in record for g in GEMM_RECORDS))
+
+
+def moe_path(torch, model, prompts, results) -> dict:
+    """Phase 8, granite-moe-3b-a800m under wls: the expert-sorted entries the
+    capacity dropped in an eager prefill (per layer, of B * S * top_k), and
+    one decode step's device time split: the RASA GEMM records of the
+    graphed step (its trace), and each MoE piece of the step timed alone
+    (profiler device time) on the inputs the step gave it: every layer's
+    moe_forward, its expert_ffn (the expert products, of which the
+    library's GEMM records are the bmm's), the router's product (the
+    library GEMM records of moe_forward beyond the experts') and the rest,
+    dispatch and combine.  The router and dispatch/combine times are
+    differences between those separate traces, not records of their own;
+    the records that is_library_gemm does not match are printed in full
+    (per call ms), so that a library GEMM record under another name shows
+    there."""
+    from repro_torch.models import moe, transformer
+    m = model.model
+    b, s = prompts.shape[:2]
+    model.cfg = dataclasses.replace(model.cfg, engine=engine_of(model.cfg, "wls"))
+    state = model.init_decode_state(b, s + STEPS)
+    seen = capture(transformer, "moe_forward", lambda: model.prefill(prompts, state))
+    dropped = [int((~out[1].keep).sum()) for _, _, out in seen]
+    entries = b * s * m.moe.top_k
+    g = moe._group_count(b * s, m.moe.dispatch_groups)
+    print(f"moe {m.name}: prefill ({b}x{s} tokens, {g} groups of {b * s // g}, capacity "
+          f"{moe.capacity(b * s // g, m)} per expert): {sum(dropped)} of "
+          f"{entries * len(dropped)} expert entries dropped by the capacity over "
+          f"{len(dropped)} layers; per layer {dropped}")
+    tok = torch.zeros(transformer.token_shape(m, b), dtype=torch.int32, device=DEV)
+    ffn = []
+    seen = capture(transformer, "moe_forward", lambda: ffn.extend(
+        capture(moe, "expert_ffn", lambda: model.decode_step(tok, state))))
+    torch.cuda.synchronize()
+    calls = [(a, kw) for a, kw, _ in seen]
+    ffn_calls = [(a, kw) for a, kw, _ in ffn]
+    t_moe, _, timer_moe, rec_moe = device_ms(
+        torch, lambda: [transformer.moe_forward(*a, **kw) for a, kw in calls], 3)
+    t_ffn, _, timer_ffn, rec_ffn = device_ms(
+        torch, lambda: [moe.expert_ffn(*a, **kw) for a, kw in ffn_calls], 3)
+    lib = lambda recs: (None if any(v is None for v in recs.values())
+                        else sum(v for r, v in recs.items() if is_library_gemm(r)))
+    bmm, lib_moe = lib(rec_ffn), lib(rec_moe)
+    router = None if bmm is None or lib_moe is None else lib_moe - bmm
+    trace = results["wls"]["graphed"]["trace"]["decode"]
+    busy, rasa = trace["busy_ms_per_call"], trace["gemm_busy_ms_per_call"]
+    split = {"busy_ms": busy, "rasa_gemm_ms": rasa, "moe_ms": t_moe, "expert_ffn_ms": t_ffn,
+             "expert_bmm_ms": bmm, "router_mm_ms": router,
+             "dispatch_combine_ms": None if router is None else t_moe - t_ffn - router,
+             "other_ms": busy - rasa - t_moe, "layers": len(calls),
+             "expert_kernels": library_kernels(r for r in rec_ffn if is_library_gemm(r)),
+             "timer": {"moe_ms": timer_moe, "expert_ffn_ms": timer_ffn}}
+    print(f"moe {m.name} decode step split (ms; busy and rasa_gemm from the graphed trace, "
+          "the MoE pieces timed alone; router_mm_ms and dispatch_combine_ms are differences "
+          "of those timings): " + json.dumps(split))
+    unmatched = {what: {r: v for r, v in sorted(recs.items()) if not is_library_gemm(r)}
+                 for what, recs in (("moe_forward", rec_moe), ("expert_ffn", rec_ffn))}
+    print(f"moe {m.name} decode step records not matched as library GEMMs (ms per call): "
+          + json.dumps(unmatched))
+    return {"prefill_dropped": dropped, "prefill_entries_per_layer": entries,
+            "decode_split": split, "unmatched_records": unmatched}
+
+
+def time_heads(torch, rk, cfg) -> list[dict]:
+    """Phase 8: the untied heads of phases 8 and 9 at M = batch (the head
+    sees only the last position, in prefill as in decode), bf16: each
+    schedule, the plain version and torch.matmul (device time; distinct
+    weights summing to at least 100 MB, so that the weights come cold from
+    HBM as in a step), against the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import head_width
+    blocks = rk.GemmBlocks(cfg.engine.block_m, cfg.engine.block_k, cfg.engine.block_n)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    fns = {**{sch: lambda x, w, sch=sch: rk.rasa_gemm(x, w, schedule=sch, blocks=blocks)
+              for sch in rk.SCHEDULES},
+           "plain": lambda x, w: rk.rasa_gemm_plain(x, w, blocks=blocks),
+           "library": torch.matmul}
+    rows = []
+    for arch in (*FAMILY_ARCHS, *REDUCED):
+        m = get_config(arch).model
+        k, n = m.d_model, head_width(m)
+        copies = max(1, -(-100_000_000 // (2 * k * n)))
+        ws = [torch.randn(k, n, device=DEV, generator=gen).to(torch.bfloat16)
+              for _ in range(copies)]
+        a = torch.randn(BATCH, k, device=DEV, generator=gen).to(torch.bfloat16)
+        row = {"what": f"{arch} head", "M": BATCH, "K": k, "N": n, "timer": {}}
+        for name, f in fns.items():
+            dev, _, row["timer"][name], _ = device_ms(torch, lambda: [f(a, w) for w in ws], 3)
+            row[f"{name}_ms"] = dev / copies
+        row.update(bound_fields(*gemm_bound_ms(BATCH, k, n, "bfloat16")))
+        row["hbm_share"] = {name: hbm_share(row["bytes_ms"], row[f"{name}_ms"]) for name in fns}
+        rows.append(row)
+        print("time head " + json.dumps(row))
+        del ws, a
+    return rows
+
+
+def serve_family(torch, rk, cfg) -> dict:
+    """Phase 8: one model (granite-moe-3b-a800m, musicgen-large) at full
+    width and depth under wls and xla (serve, one timed generation a
+    session), beside its decode floor; the MoE with moe_path."""
+    m = cfg.model
+    path = (lambda model, prompts, results: {
+        "floor": decode_floor_ms(model),
+        **(moe_path(torch, model, prompts, results) if m.family == "moe" else {})})
+    out = serve(torch, rk, cfg, ("wls", "xla"), PROMPT, path=path, repeats=1)
+    floor_bytes, floor_ms = out["path"]["floor"]
+    print(f"serve {m.name}: decode floor {floor_bytes / 1e9:.3f} GB of weights per step "
+          f"-> {floor_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; graphed wls "
+          f"{out['wls']['graphed']['decode_ms_per_step']:.3f} ms/step")
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_reduced(torch, rk, arch: str, layers: int) -> dict:
+    """Phase 9: ``arch`` at full width and ``layers`` of its layers under wls
+    through the graphed and the eager session (serve_engines: bit for bit,
+    one timed generation each, traced), then the xla engine's eager prefill logits against
+    wls's at the bf16 tolerance."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    full = cfg.model.n_layers
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, n_layers=layers))
+    label = f"{arch} (reduced depth, {layers} of {full} layers)"
+    print(f"serve {label}")
+    model, prompts = build_served(torch, cfg, PROMPT)
+    results = serve_engines(torch, rk, cfg, model, prompts, ("wls",), repeats=1)
+    model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, "xla"))
+    xla, _ = model.prefill(prompts, model.init_decode_state(BATCH, PROMPT))
+    err = rel_err(results["wls"]["logits"], xla)
+    print(f"serve {label}: bf16 kernel vs xla prefill logits rel_err {err:.6g} (< {BF16_TOL})")
+    if not (err < BF16_TOL and torch.isfinite(xla).all()):
+        raise AssertionError(f"{label}: bf16 kernel engine vs xla rel_err {err} >= {BF16_TOL}")
+    results["floor"] = decode_floor_ms(model)
+    print(f"serve {label}: decode floor {results['floor'][0] / 1e9:.3f} GB of weights per "
+          f"step -> {results['floor'][1]:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; graphed "
+          f"wls {results['wls']['graphed']['decode_ms_per_step']:.3f} ms/step")
+    del model, xla
+    torch.cuda.empty_cache()
+    results["wls"].pop("logits")
+    results["label"], results["xla_rel_err"] = label, err
     return results
 
 
@@ -1334,9 +1547,11 @@ def main() -> int:
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
+    print("prediction (written before the first run of phases 8 and 9): " + PREDICTION_FAMILIES)
     phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
     phase("check")
-    worst = check_gemm(torch, rk, (qwen, mamba, zamba))
+    worst = check_gemm(torch, rk, (qwen, mamba, zamba, *map(get_config, FAMILY_ARCHS),
+                                   *map(get_config, REDUCED)))
     worst["flash"] = check_flash(torch, fa, flash_mha)
     worst["ssd"] = check_ssd(torch, sc)
     phase("time")
@@ -1354,9 +1569,23 @@ def main() -> int:
     phase("flash path")
     flash = flash_path(torch, fa, flash_mha, qwen)
     phase("serve mamba2-130m")
-    ssd = serve(torch, rk, mamba, ("wls", "xla"), SSM_PROMPT, ssd=sc)["ssd_path"]
+    def ssd_on_xla(model, prompts, _):
+        model.cfg = dataclasses.replace(mamba, engine=engine_of(mamba, "xla"))
+        return ssd_path(torch, sc, model, prompts)
+
+    ssd = serve(torch, rk, mamba, ("wls", "xla"), SSM_PROMPT, path=ssd_on_xla)["path"]
     phase("serve zamba2-2.7b")
     serve(torch, rk, zamba, ("wls", "xla"), SSM_PROMPT)
+    families, reduced = {}, {}
+    for arch in FAMILY_ARCHS:
+        phase(f"serve {arch}")
+        families[arch] = serve_family(torch, rk, get_config(arch))
+    phase("time heads")
+    time_heads(torch, rk, qwen)
+    for arch, layers in REDUCED.items():
+        phase(f"serve {arch} at reduced depth")
+        reduced[arch] = serve_reduced(torch, rk, arch, layers)
+    by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
                 for phase in ("decode", "prefill")}
@@ -1368,6 +1597,8 @@ def main() -> int:
             "launches_note": "the wrapper's count over the main path (the graphed session's "
                              "first generate: one warm-up and one captured forward each of "
                              "prefill and decode; replays never enter the wrapper)",
+            "launches_by_model": {
+                name: r[s]["launches"][s] if s in r else 0 for name, r in by_model.items()},
             "replayed_launches_per_forward": {
                 part: int(results[s]["graphed"]["trace"][part]["gemm_records_per_call"])
                 for part in ("prefill", "decode")},

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense decoder (transformer.py) and the ssm /
-hybrid language models (ssm_lm.py).
+"""Model zoo of the port: the decoder of the dense, moe, vlm and audio
+families (transformer.py, moe.py) and the ssm / hybrid language models
+(ssm_lm.py).
 
 All GEMMs route through the configurable matrix engine
 (:func:`repro_torch.models.common.matmul`).
@@ -14,22 +15,22 @@ from . import ssm_lm, transformer
 from .common import resolve_device
 from .convert import params_from_jax
 from .ssm_lm import HybridState, SSMLanguageModel
-from .transformer import DecodeState, DenseTransformer
+from .transformer import DecodeState, Transformer
 
-#: either family's model: the same prefill / decode_step / init_decode_state
-Model = DenseTransformer | SSMLanguageModel
+#: either model class: the same prefill / decode_step / init_decode_state
+Model = Transformer | SSMLanguageModel
 
 
 def build_model(cfg: RunConfig, device="cuda", seed: int = 0) -> Model:
     """The model of ``cfg`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    transformer.check_family(cfg.model, ("dense", *ssm_lm.SSM_FAMILIES))
+    transformer.check_family(cfg.model, (*transformer.FAMILIES, *ssm_lm.SSM_FAMILIES))
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     if cfg.model.family in ssm_lm.SSM_FAMILIES:
         return SSMLanguageModel(cfg, ssm_lm.init_params(cfg.model, gen, device))
-    return DenseTransformer(cfg, transformer.init_params(cfg.model, gen, device))
+    return Transformer(cfg, transformer.init_params(cfg.model, gen, device))
 
 
 __all__ = ["build_model", "params_from_jax", "resolve_device", "Model",
-           "DenseTransformer", "DecodeState", "SSMLanguageModel", "HybridState"]
+           "Transformer", "DecodeState", "SSMLanguageModel", "HybridState"]

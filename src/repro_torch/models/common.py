@@ -1,7 +1,7 @@
 """Shared model plumbing: the matrix-engine dispatch + init helpers.
 
 Every GEMM of the models routes through :func:`matmul`, which selects the
-engine per config: ``xla`` (``torch.matmul`` in fp32, the plain path) or
+engine per config: ``xla`` (a plain product with fp32 accumulation) or
 ``pallas_rasa`` (the RASA-scheduled CUDA kernels of
 ``repro_torch.kernels``; their plain version on the CPU).  The engine names
 are the JAX package's.
@@ -20,13 +20,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor, engine: EngineConfig | None = None,
     """x [..., K] @ w [K, N] with fp32 accumulation, cast to out_dtype
     (default: x.dtype)."""
     out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
     if engine is not None and engine.kind == "pallas_rasa":
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
         blocks = GemmBlocks(engine.block_m, engine.block_k, engine.block_n)
         out = rasa_matmul(x2, w, schedule=engine.schedule, blocks=blocks)
-        return out.reshape(*lead, w.shape[-1]).to(out_dtype)
-    return torch.matmul(x.float(), w.float()).to(out_dtype)
+    else:
+        out = dot_f32(torch.mm, x2, w)
+    return out.reshape(*lead, w.shape[-1]).to(out_dtype)
+
+
+def dot_f32(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``op`` (``torch.mm`` or ``torch.bmm``) of a and b with fp32
+    accumulation and an fp32 result, as ``jnp.dot(...,
+    preferred_element_type=float32)``.  On a CUDA device with bf16 operands
+    this is the library's ``out_dtype`` overload, which reads the operands
+    as they are; elsewhere (that overload has no CPU kernel) the operands
+    are cast to fp32 first.  Products of bf16 values are exact in fp32, so
+    the two differ only in the order of the sums."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return op(a, b, out_dtype=torch.float32)
+    return op(a.float(), b.float())
 
 
 def resolve_device(device) -> torch.device:

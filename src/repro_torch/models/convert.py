@@ -3,7 +3,9 @@
 ``jax.random`` cannot be reproduced in torch, so parity with the reference
 uses the reference's own initialised weights.  The tree comes in as numpy
 arrays (``jax.tree.map(np.asarray, params)``) with stacked [L, ...] layer
-leaves (the hybrid's ``shared_attn`` is one unstacked dict); bf16
+leaves (the MoE's expert weights [L, E, ...] unstack like any other; the
+hybrid's ``shared_attn`` and the vision frontend's ``patch_proj`` are not
+stacked); bf16
 (``ml_dtypes.bfloat16``) is copied bit for bit through an int16 view, and
 f32 leaves (the SSM's ``dt_bias``, ``A_log``, ``D_skip``) stay f32.
 Nothing here imports jax.
@@ -17,7 +19,7 @@ import torch
 from ..config import RunConfig
 from .common import resolve_device
 from .ssm_lm import SSM_FAMILIES, SSMLanguageModel
-from .transformer import DenseTransformer, check_family
+from .transformer import FAMILIES, Transformer, check_family
 
 
 def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
@@ -30,9 +32,9 @@ def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
 
 
 def params_from_jax(cfg: RunConfig, tree: dict,
-                    device="cuda") -> DenseTransformer | SSMLanguageModel:
+                    device="cuda") -> Transformer | SSMLanguageModel:
     """The port's model holding the reference's parameters ``tree``."""
-    check_family(cfg.model, ("dense", *SSM_FAMILIES))
+    check_family(cfg.model, (*FAMILIES, *SSM_FAMILIES))
     device = resolve_device(device)
     conv = lambda a: tensor_from_numpy(a, device)
     layers = tree["layers"]
@@ -42,11 +44,12 @@ def params_from_jax(cfg: RunConfig, tree: dict,
                    for i in range(cfg.model.n_layers)],
         "final_norm": conv(tree["final_norm"]),
     }
-    if "lm_head" in tree:
-        params["lm_head"] = conv(tree["lm_head"])
+    for name in ("lm_head", "patch_proj"):
+        if name in tree:
+            params[name] = conv(tree[name])
     if cfg.model.family in SSM_FAMILIES:
         if "shared_attn" in tree:
             params["shared_attn"] = {name: conv(leaf)
                                      for name, leaf in tree["shared_attn"].items()}
         return SSMLanguageModel(cfg, params)
-    return DenseTransformer(cfg, params)
+    return Transformer(cfg, params)

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``models/layers.py``; same layouts (weights
 are [in, out], activations [B, S, ...]).  Per-layer parameters come in as a
-mapping of name -> tensor.  M-RoPE waits for the VLM slice.
+mapping of name -> tensor.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import EngineConfig, ModelConfig
-from .common import matmul
+from .common import dot_f32, matmul
 
 # --------------------------------------------------------------------- norms
 
@@ -37,20 +37,33 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
 
 
-def rope_from_freqs(positions: torch.Tensor,
-                    freqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """sin/cos tables for standard RoPE.  positions: [B, S] -> [B, S, hd//2]."""
-    if positions.dim() != 2:
-        raise NotImplementedError("M-RoPE positions [3, B, S] wait for the VLM "
-                                  "slice (ROADMAP queue 1, item 8)")
+def rope_from_freqs(positions: torch.Tensor, freqs: torch.Tensor,
+                    sections: tuple[int, ...] | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables [B, S, hd//2].  positions: [B, S] (standard) or
+    [3, B, S] (M-RoPE: temporal/height/width streams), where the hd/2
+    frequency slots are split into ``sections``, each driven by its own
+    stream; text tokens pass identical t/h/w, so M-RoPE reduces to standard
+    RoPE for them."""
     ang = positions.float()[..., None] * freqs
+    if positions.dim() == 3:
+        if sections is None or sum(sections) != freqs.shape[0]:
+            raise ValueError(f"M-RoPE sections {sections} must sum to {freqs.shape[0]}")
+        parts, start = [], 0
+        for stream, sec in zip(ang, sections):
+            parts.append(stream[..., start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)
     return torch.sin(ang), torch.cos(ang)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """sin/cos tables for standard RoPE.  positions: [B, S] -> [B, S, hd//2]."""
-    return rope_from_freqs(positions, rope_freqs(head_dim, theta, positions.device))
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                sections: tuple[int, ...] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables, as rope_from_freqs, with the frequencies computed
+    here."""
+    return rope_from_freqs(positions, rope_freqs(head_dim, theta, positions.device),
+                           sections)
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -172,18 +185,22 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     else:
         # single-token decode; in-place append at the cache's length (read
         # on the device: no host sync), then grouped-query attention without
-        # expanding the cache
-        pos = cache.length + torch.arange(s, device=x.device)
-        cache.k.index_copy_(2, pos, k.to(cache.k.dtype))
-        cache.v.index_copy_(2, pos, v.to(cache.v.dtype))
-        cache.length.add_(s)
+        # expanding the cache.  Past a full cache the write lands at
+        # smax - s, as dynamic_update_slice clamps it in the reference; the
+        # length and the mask's positions keep counting.
         ck, cv = cache.k, cache.v
+        smax = ck.shape[2]
+        steps = torch.arange(s, device=x.device)
+        write = torch.clamp(cache.length, max=smax - s) + steps
+        ck.index_copy_(2, write, k.to(ck.dtype))
+        cv.index_copy_(2, write, v.to(cv.dtype))
+        pos = cache.length + steps
+        cache.length.add_(s)
         group = h // hkv
         qg = q.reshape(b, hkv, group * s, hd).float() * scale
         logits = torch.einsum("bhqd,bhkd->bhqk", qg, ck.float())
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-        smax = ck.shape[2]
         # queries are (group-major) the s new positions repeated per group
         qpos = pos.repeat(group)
         mask = (torch.arange(smax, device=x.device)[None, None, None, :]
@@ -206,8 +223,9 @@ def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     if act in ("swiglu", "geglu"):
         if "w_gate_up" in p:
             # fused gate+up: one GEMM, x read once (WL-skip analogue)
-            gu = torch.einsum("bsd,dgf->bsgf", x.float(),
-                              p["w_gate_up"].float()).to(x.dtype)
+            w = p["w_gate_up"]
+            gu = dot_f32(torch.mm, x.reshape(-1, w.shape[0]), w.reshape(w.shape[0], -1))
+            gu = gu.reshape(*x.shape[:2], *w.shape[1:]).to(x.dtype)
             g, u = gu[:, :, 0], gu[:, :, 1]
         else:
             g = matmul(x, p["w_gate"], engine)

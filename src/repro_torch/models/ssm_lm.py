@@ -145,7 +145,7 @@ class SSMLanguageModel(nn.Module):
     """The ssm / hybrid language model: embedding, ``ModuleList`` of Mamba2
     layers, the hybrid's shared attention block, final norm and LM head
     (tied to the embedding when the config says so).  Same serving surface
-    as ``DenseTransformer``."""
+    as ``Transformer``."""
 
     def __init__(self, cfg: RunConfig, params: dict):
         super().__init__()
@@ -173,7 +173,7 @@ class SSMLanguageModel(nn.Module):
     def _rope(self, batch: int, seq: int, offset: int | torch.Tensor):
         if self.model.family != "hybrid":
             return None, None
-        return rope_from_freqs(positions_for(batch, seq, offset, self.device),
+        return rope_from_freqs(positions_for(self.model, batch, seq, offset, self.device),
                                self.rope_freqs)
 
     def init_decode_state(self, batch: int, max_seq: int,
@@ -199,7 +199,7 @@ class SSMLanguageModel(nn.Module):
         updating the state in place (the position advances by S); returns
         the last position's logits [B, V] and the state."""
         b, s = tokens.shape
-        x = embed_tokens(self.embedding, tokens)
+        x = embed_tokens(self, tokens)
         sin, cos = self._rope(b, s, 0)
         x = run_backbone(self, x, state, sin, cos)
         logits = logits_from(self, x[:, -1:])
@@ -212,7 +212,7 @@ class SSMLanguageModel(nn.Module):
         """One decode step: token [B] -> logits [B, V]; the state advances
         in place by one position."""
         b = token.shape[0]
-        x = embed_tokens(self.embedding, token[:, None])
+        x = embed_tokens(self, token[:, None])
         sin, cos = self._rope(b, 1, state.position)
         x = run_backbone(self, x, state, sin, cos)
         logits = logits_from(self, x)

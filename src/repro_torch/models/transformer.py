@@ -1,13 +1,20 @@
-"""Decoder-only transformer backbone, dense family.
+"""Decoder-only transformer backbone: dense, MoE, VLM and audio families.
 
 Counterpart of the JAX package's ``models/transformer.py``.  The model is an
-``nn.Module`` (``DenseTransformer``) holding a ``ModuleList`` of decoder
-blocks; the layer loop is a plain Python loop (the reference scans over
-stacked [L, ...] parameters; ``convert.params_from_jax`` unstacks them).
+``nn.Module`` (``Transformer``) holding a ``ModuleList`` of decoder blocks;
+the layer loop is a plain Python loop (the reference scans over stacked
+[L, ...] parameters; ``convert.params_from_jax`` unstacks them).
 Parameters keep the reference's names and [in, out] layouts, and are
-inference-only (``requires_grad=False``).  The ssm and hybrid families live
-in ``ssm_lm.py``; the moe, vlm and audio families wait for ROADMAP queue 1,
-item 8.
+inference-only (``requires_grad=False``).  The families:
+
+- dense: the GQA decoder (nemotron, qwen3, gemma);
+- moe: the same with a top-k MoE FFN (grok, granite; ``moe.py``);
+- vlm: dense with M-RoPE and a stub patch projection (qwen2-vl); serving
+  passes text only, so its positions are t = h = w;
+- audio: dense over the sum of per-codebook embeddings, with one head per
+  codebook (musicgen); its tokens are [B, S, n_codebooks].
+
+The ssm and hybrid families live in ``ssm_lm.py``.
 """
 
 from __future__ import annotations
@@ -21,19 +28,41 @@ from ..config import EngineConfig, ModelConfig, RunConfig
 from .common import dtype_of, embed_init, he_init, matmul
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
+from .moe import moe_forward
 
-_LATER_FAMILIES = {"moe": "ROADMAP queue 1, item 8 (MoE)",
-                   "vlm": "ROADMAP queue 1, item 8 (VLM)",
-                   "audio": "ROADMAP queue 1, item 8 (audio)"}
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
-def check_family(cfg: ModelConfig, families: tuple[str, ...] = ("dense",)) -> None:
+def check_family(cfg: ModelConfig, families: tuple[str, ...] = FAMILIES) -> None:
     """Raise unless ``cfg.family`` is one of ``families``."""
-    if cfg.family in _LATER_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"{_LATER_FAMILIES[cfg.family]}")
     if cfg.family not in families:
         raise ValueError(f"family {cfg.family!r} is not one of {families}")
+
+
+def token_shape(cfg: ModelConfig, batch: int) -> tuple[int, ...]:
+    """A decode step's tokens: [B], or [B, n_codebooks] for the audio
+    family (a prompt adds the sequence axis after B)."""
+    return (batch, cfg.n_codebooks) if cfg.family == "audio" else (batch,)
+
+
+def prompt_shape(cfg: ModelConfig, batch: int, seq: int) -> tuple[int, ...]:
+    """A prompt's tokens: [B, S], or [B, S, n_codebooks] for the audio family."""
+    return (batch, seq, *token_shape(cfg, batch)[1:])
+
+
+def head_width(cfg: ModelConfig) -> int:
+    """The LM head's columns and the embedding's rows: the vocab, times
+    n_codebooks for the audio family."""
+    return cfg.vocab * (cfg.n_codebooks if cfg.family == "audio" else 1)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Temporal/height/width frequency splits, proportioned like qwen2-vl
+    (16/24/24 of the 64 half-dims at head_dim=128)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -75,6 +104,16 @@ def init_layer_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     if cfg.qk_norm:
         p["q_norm"] = zeros(hd)
         p["k_norm"] = zeros(hd)
+    if cfg.moe is not None:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        p["router"] = init((d, e), d)
+        if cfg.fuse_gate_up:
+            p["experts_w_gate_up"] = init((e, d, 2, fe), d)
+        else:
+            p["experts_w_gate"] = init((e, d, fe), d)
+            p["experts_w_up"] = init((e, d, fe), d)
+        p["experts_w_down"] = init((e, fe, d), fe)
+        return p
     f = cfg.d_ff
     gated = cfg.act in ("swiglu", "geglu")
     if gated and cfg.fuse_gate_up:
@@ -89,19 +128,23 @@ def init_layer_params(cfg: ModelConfig, gen: torch.Generator, dtype,
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device) -> dict:
-    """Random parameters from ``gen``: {"embedding", "layers": [dict per
-    layer], "final_norm", "lm_head" (untied only)}."""
+    """Random parameters from ``gen``: {"embedding" ([vocab * n_codebooks,
+    d] for audio), "layers": [dict per layer], "final_norm", "lm_head"
+    (untied only; [d, vocab * n_codebooks]), "patch_proj" (vision
+    frontend)}."""
     check_family(cfg)
     dtype = dtype_of(cfg)
     d = cfg.d_model
     params = {
-        "embedding": embed_init(gen, (cfg.vocab, d), dtype, device),
+        "embedding": embed_init(gen, (head_width(cfg), d), dtype, device),
         "layers": [init_layer_params(cfg, gen, dtype, device)
                    for _ in range(cfg.n_layers)],
         "final_norm": torch.zeros(d, dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = he_init(gen, (d, cfg.vocab), dtype, d, device)
+        params["lm_head"] = he_init(gen, (d, head_width(cfg)), dtype, d, device)
+    if cfg.frontend == "vision":
+        params["patch_proj"] = he_init(gen, (d, d), dtype, d, device)
     return params
 
 
@@ -111,12 +154,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 def decoder_block(params_l, x: torch.Tensor, cfg: ModelConfig,
                   engine: EngineConfig, sin, cos,
                   cache: Optional[KVCache] = None):
-    """Pre-norm block; returns (x, new_cache)."""
+    """Pre-norm block; returns (x, new_cache).  The MoE's auxiliary loss is
+    not computed: serving discards it, as the reference's compiled steps do."""
     h = rms_norm(x, params_l["norm1"], cfg.rms_eps)
     attn_out, new_cache = attention_block(params_l, h, cfg, engine, sin, cos,
                                           cache)
     x = x + attn_out
     h = rms_norm(x, params_l["norm2"], cfg.rms_eps)
+    if cfg.moe is not None:
+        return x + moe_forward(params_l, h, cfg)[0], new_cache
     return x + mlp_block(params_l, h, cfg, engine), new_cache
 
 
@@ -140,17 +186,35 @@ def run_layers(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------- embedding
 
 
-def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: [B, S] -> [B, S, D]."""
-    return embedding[tokens.long()]
+def embed_tokens(model: nn.Module, tokens: torch.Tensor,
+                 patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens: [B, S] (audio: [B, S, n_codebooks]) -> [B, S, D].  Audio
+    sums the per-codebook embeddings (offsets into one stacked table; the
+    sum accumulates in fp32 and rounds once, which gives the reference's
+    bits); for the vlm family, ``patch_embeds`` [B, P, D] (the stub
+    frontend's output) go through ``patch_proj`` and are prepended."""
+    cfg = model.model
+    emb = model.embedding
+    if cfg.family == "audio":
+        offsets = torch.arange(cfg.n_codebooks, device=tokens.device) * cfg.vocab
+        x = emb[(tokens + offsets).long()].sum(dim=2)
+    else:
+        x = emb[tokens.long()]
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = matmul(patch_embeds.to(x.dtype), model.patch_proj)
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
-def positions_for(batch: int, seq: int, offset: int | torch.Tensor = 0,
-                  device=None) -> torch.Tensor:
-    """[B, S] positions offset..offset+seq-1; ``offset`` may be a 0-d device
-    tensor (the decode position), read on the device."""
-    pos = torch.arange(seq, device=device)[None, :] + offset
-    return pos.expand(batch, seq)
+def positions_for(cfg: ModelConfig, batch: int, seq: int,
+                  offset: int | torch.Tensor = 0, device=None) -> torch.Tensor:
+    """[B, S] positions offset..offset+seq-1 ([3, B, S] under M-RoPE, with
+    t = h = w as the reference gives text tokens); ``offset`` may be a 0-d
+    device tensor (the decode position), read on the device."""
+    pos = (torch.arange(seq, device=device)[None, :] + offset).expand(batch, seq)
+    if cfg.rope == "mrope":
+        return pos[None].expand(3, batch, seq)
+    return pos
 
 
 # ------------------------------------------------------------------ serving
@@ -158,11 +222,15 @@ def positions_for(batch: int, seq: int, offset: int | torch.Tensor = 0,
 
 def logits_from(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Final norm and LM head (the embedding, transposed, when tied) of
-    either family's model; fp32 logits."""
+    either model class; fp32 logits [B, S, V] (audio: [B, S, n_codebooks,
+    V])."""
     m = model.cfg.model
     x = rms_norm(x, model.final_norm, m.rms_eps)
     head = model.embedding.T if m.tie_embeddings else model.lm_head
-    return matmul(x, head, model.cfg.engine, out_dtype=torch.float32)
+    logits = matmul(x, head, model.cfg.engine, out_dtype=torch.float32)
+    if m.family == "audio":
+        return logits.reshape(*logits.shape[:2], m.n_codebooks, m.vocab)
+    return logits
 
 
 class DecodeState(NamedTuple):
@@ -178,9 +246,11 @@ class DecodeState(NamedTuple):
             t.zero_()
 
 
-class DenseTransformer(nn.Module):
-    """The dense decoder: embedding, ``ModuleList`` of blocks, final norm,
-    and an LM head (tied to the embedding when the config says so)."""
+class Transformer(nn.Module):
+    """The decoder of the dense, moe, vlm and audio families: embedding,
+    ``ModuleList`` of blocks, final norm, an LM head (tied to the embedding
+    when the config says so) and, for the vision frontend, the patch
+    projection."""
 
     def __init__(self, cfg: RunConfig, params: dict):
         super().__init__()
@@ -191,9 +261,12 @@ class DenseTransformer(nn.Module):
         self.final_norm = _param(params["final_norm"])
         if not cfg.model.tie_embeddings:
             self.lm_head = _param(params["lm_head"])
+        if "patch_proj" in params:
+            self.patch_proj = _param(params["patch_proj"])
         m = cfg.model
         self.register_buffer("rope_freqs", rope_freqs(
             m.resolved_head_dim, m.rope_theta, self.device), persistent=False)
+        self.rope_sections = mrope_sections(m.resolved_head_dim) if m.rope == "mrope" else None
 
     @property
     def model(self) -> ModelConfig:
@@ -204,8 +277,8 @@ class DenseTransformer(nn.Module):
         return self.embedding.device
 
     def _rope(self, batch: int, seq: int, offset: int | torch.Tensor):
-        return rope_from_freqs(positions_for(batch, seq, offset, self.device),
-                               self.rope_freqs)
+        return rope_from_freqs(positions_for(self.model, batch, seq, offset, self.device),
+                               self.rope_freqs, self.rope_sections)
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype: torch.dtype | None = None) -> DecodeState:
@@ -222,11 +295,12 @@ class DenseTransformer(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
-        """Run the prompt [B, S] through the stack, filling the caches and
-        setting the position in place; returns the last position's logits
-        [B, V] and the state."""
-        b, s = tokens.shape
-        x = embed_tokens(self.embedding, tokens)
+        """Run the prompt [B, S] (audio: [B, S, n_codebooks]) through the
+        stack, filling the caches and setting the position in place; returns
+        the last position's logits [B, V] (audio: [B, n_codebooks, V]) and
+        the state."""
+        b, s = tokens.shape[:2]
+        x = embed_tokens(self, tokens)
         sin, cos = self._rope(b, s, 0)
         x = run_layers(self.layers, x, self.model, self.cfg.engine, sin, cos,
                        state.caches)
@@ -237,10 +311,11 @@ class DenseTransformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor,
                     state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
-        """One decode step: token [B] -> logits [B, V]; the state advances
-        in place by one position."""
+        """One decode step: token [B] (audio: [B, n_codebooks]) -> logits
+        [B, V] (audio: [B, n_codebooks, V]); the state advances in place by
+        one position."""
         b = token.shape[0]
-        x = embed_tokens(self.embedding, token[:, None])
+        x = embed_tokens(self, token[:, None])
         sin, cos = self._rope(b, 1, state.position)
         x = run_layers(self.layers, x, self.model, self.cfg.engine, sin, cos,
                        state.caches)

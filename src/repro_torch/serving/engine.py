@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from ..models import Model, resolve_device
+from ..models.transformer import token_shape
 
 
 @dataclasses.dataclass
@@ -65,11 +66,13 @@ class ServeSession:
         return self.device.type == "cuda" and not self.eager
 
     def _slot(self, batch: int):
-        """(state, token buffer) of ``batch``, made on first use."""
+        """(state, token buffer) of ``batch``, made on first use; the
+        buffer is [B], or [B, n_codebooks] for the audio family."""
         slot = self._slots.get(batch)
         if slot is None:
             slot = (self.model.init_decode_state(batch, self.max_seq),
-                    torch.zeros(batch, dtype=torch.int32, device=self.device))
+                    torch.zeros(token_shape(self.model.model, batch), dtype=torch.int32,
+                                device=self.device))
             self._slots[batch] = slot
         return slot
 
@@ -96,12 +99,13 @@ class ServeSession:
     @torch.no_grad()
     def prefill(self, prompts) -> torch.Tensor:
         """Start a generation: the state of this batch size zeroed, then
-        the prompts [B, S] through the model; returns the last position's
-        logits [B, V] (graphed: a static buffer, rewritten by the next
+        the prompts [B, S] (audio: [B, S, n_codebooks]) through the model;
+        returns the last position's logits [B, V] (audio: [B, n_codebooks,
+        V]; graphed: a static buffer, rewritten by the next
         replay of this prefill).  Graphed, the first prefill of a key
         captures it and this batch's decode step."""
         prompts = torch.as_tensor(prompts, device=self.device)
-        b, s = prompts.shape
+        b, s = prompts.shape[:2]
         if s > self.max_seq:
             raise ValueError(f"prompt {s} exceeds max_seq {self.max_seq}")
         state, token = self._slot(b)
@@ -112,7 +116,7 @@ class ServeSession:
         buf = self._prompts.get((b, s))
         if buf is None:
             buf = self._prompts[(b, s)] = torch.zeros(
-                (b, s), dtype=prompts.dtype, device=self.device)
+                prompts.shape, dtype=prompts.dtype, device=self.device)
         cfg = self.model.cfg
         self._capture(("prefill", b, s, cfg), lambda: self.model.prefill(buf, state)[0])
         self._capture(("decode", b, cfg), lambda: self.model.decode_step(token, state)[0])
@@ -122,8 +126,9 @@ class ServeSession:
 
     @torch.no_grad()
     def decode_step(self, tokens) -> torch.Tensor:
-        """One greedy step after ``prefill``: tokens [B] -> logits [B, V]
-        (graphed: a static buffer, rewritten by the next step)."""
+        """One greedy step after ``prefill``: tokens [B] (audio: [B,
+        n_codebooks]) -> logits [B, V] (audio: [B, n_codebooks, V]; graphed:
+        a static buffer, rewritten by the next step)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b = tokens.shape[0]
         if b != self._batch:
@@ -141,7 +146,11 @@ class ServeSession:
 
     @torch.no_grad()
     def generate(self, prompts, steps: int) -> torch.Tensor:
-        """prompts: [B, S] int -> generated tokens [B, steps] (int32)."""
+        """prompts: [B, S] int -> generated tokens [B, steps] (int32); audio:
+        [B, S, n_codebooks] -> [B, steps, n_codebooks].  The prompt and the
+        steps must fit ``max_seq``: the model itself computes past it, as
+        the reference does (the cache's last slot is rewritten), but a
+        generation that needs it is refused here."""
         prompts = torch.as_tensor(prompts, device=self.device)
         s = prompts.shape[1]
         if s + steps > self.max_seq:

@@ -17,6 +17,7 @@ from repro.serving import ServeSession as JSession
 from repro_torch import config as tconfig
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import params_from_jax
+from repro_torch.models.transformer import prompt_shape
 from repro_torch.serving import ServeSession
 
 BATCH, PROMPT, STEPS, MAX_SEQ = 2, 8, 6, 32
@@ -66,7 +67,19 @@ def model_cfg(arch, dtype, softcap=0.0, **kw):
     """(reference, port) ModelConfig of the smoke arch, with overrides."""
     m = dataclasses.replace(j_get_config(arch, smoke=True).model, dtype=dtype,
                             logit_softcap=softcap, **kw)
-    return m, tconfig.ModelConfig(**dataclasses.asdict(m))
+    return m, port_model_cfg(m)
+
+
+def port_model_cfg(m):
+    """The port's ModelConfig equal to the reference's ``m``, its nested
+    configs (moe, ssm, hybrid) included."""
+    nested = {"moe": tconfig.MoEConfig, "ssm": tconfig.SSMConfig,
+              "hybrid": tconfig.HybridConfig}
+    fields = {f.name: getattr(m, f.name) for f in dataclasses.fields(m)}
+    for name, cls in nested.items():
+        if fields[name] is not None:
+            fields[name] = cls(**dataclasses.asdict(fields[name]))
+    return tconfig.ModelConfig(**fields)
 
 
 def with_dtype(cfg, dtype):
@@ -76,12 +89,13 @@ def with_dtype(cfg, dtype):
 def reference(arch: str, dtype: str) -> dict:
     """The reference's weights (jax.random.key(0)) and its outputs on a
     seeded prompt: prefill logits, teacher-forced decode logits, and greedy
-    tokens under the xla engine and the pallas_rasa (wls) engine."""
+    tokens under the xla engine and the pallas_rasa (wls) engine.  The
+    prompt is [B, S], or [B, S, n_codebooks] for the audio family."""
     cfg = with_dtype(j_get_config(arch, smoke=True), dtype)
     api = j_build_model(cfg)
     params = api.init(jax.random.key(0))
     toks = np.random.default_rng(2).integers(
-        0, cfg.model.vocab, (BATCH, PROMPT)).astype(np.int32)
+        0, cfg.model.vocab, prompt_shape(cfg.model, BATCH, PROMPT)).astype(np.int32)
     prefill, _ = jax.jit(api.prefill)(params, jnp.asarray(toks),
                                       api.init_decode_state(BATCH, MAX_SEQ))
     decode = jax.jit(api.decode_step)
@@ -90,7 +104,7 @@ def reference(arch: str, dtype: str) -> dict:
     for i in range(PROMPT):
         logits, state = decode(params, jnp.asarray(toks[:, i]), state)
         steps.append(np.asarray(logits, np.float32))
-    out = {"tree": jax.tree.map(np.asarray, params), "tokens_in": toks,
+    out = {"cfg": cfg.model, "tree": jax.tree.map(np.asarray, params), "tokens_in": toks,
            "prefill": np.asarray(prefill, np.float32), "decode": steps,
            "generate": {"xla": np.asarray(JSession(api, params, MAX_SEQ).generate(
                jnp.asarray(toks), STEPS))}}

@@ -3,6 +3,7 @@ imports jax or the JAX package, the port imports with jax absent, and its
 entry points refuse the card when there is none instead of falling back."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -79,7 +80,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert fa.launches["flash"] == 0 and sc.launches["ssd"] == 0
 
 
-def test_later_families_raise_not_implemented():
-    for arch in ("granite-moe-3b-a800m", "qwen2-vl-72b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch, smoke=True), device="cpu")
+def test_every_config_builds():
+    """build_model builds every smoke config of the ten, each family's
+    model class; check_family refuses a family that does not exist."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.models import SSMLanguageModel, Transformer, transformer
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg, device="cpu")
+        ssm = cfg.model.family in ("ssm", "hybrid")
+        assert isinstance(model, SSMLanguageModel if ssm else Transformer)
+    cfg = get_config("qwen3-1.7b", smoke=True).model
+    with pytest.raises(ValueError, match="not one of"):
+        transformer.check_family(dataclasses.replace(cfg, family="diffusion"))

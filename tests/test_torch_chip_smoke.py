@@ -188,3 +188,60 @@ def test_kernel_split_without_times():
 ])
 def test_idle_share_is_the_idle_part_of_the_window(spans, want):
     assert chip_smoke.idle_share(spans) == pytest.approx(want)
+
+
+ALL_ARCHS = ["qwen3-1.7b", "mamba2-130m", "zamba2-2.7b", "granite-moe-3b-a800m",
+             "grok-1-314b", "qwen2-vl-72b", "musicgen-large"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_layer_shapes_are_the_rasa_products_of_a_forward(arch):
+    """layer_shapes and the head (head_width) are the (K, N) of every product a
+    prefill sends through the RASA engine (the MoE's router and experts do
+    not go there), so gemm_launches_per_forward counts a forward's
+    launches; smoke configs on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, common
+    from repro_torch.models.transformer import head_width, prompt_shape
+    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, engine=chip_smoke.engine_of(cfg, "wls"))
+    model = build_model(cfg, device="cpu")
+    m = model.model
+    prompts = torch.zeros(prompt_shape(m, 2, 8), dtype=torch.int32)
+    calls = chip_smoke.capture(common, "rasa_matmul", lambda: model.prefill(
+        prompts, model.init_decode_state(2, 8)))
+    got = sorted((a.shape[1], b.shape[1]) for (a, b), _, _ in calls)
+    want = sorted([(k, n) for k, n, c in chip_smoke.layer_shapes(m) for _ in range(c)]
+                  + [(m.d_model, head_width(m))])
+    assert got == want
+    assert chip_smoke.gemm_launches_per_forward(m, 512)["wls"] == len(calls)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large", "qwen3-1.7b"])
+def test_decode_floor_counts_the_weights_a_step_reads(arch):
+    """Every parameter, less the embedding when the head is not tied to it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config(arch, smoke=True), device="cpu")
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    emb = 0 if model.model.tie_embeddings else model.embedding.numel() * 2
+    got, ms = chip_smoke.decode_floor_ms(model)
+    assert got == total - emb
+    assert ms == got / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+@pytest.mark.parametrize("record,want", [
+    ("nvjet_hsh_64x8_64x16_2x1_v_bz_TNT", True),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize64x64x64_warpgroupsize1x1x1", True),
+    ("void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_s161616gemm_bf16_16x16_128x2_tn>"
+     "(Params)", True),
+    ("void (anonymous namespace)::dec::decode_kernel<64, __nv_bfloat16>(...)", False),
+    ("void (anonymous namespace)::simt::sgemm_tile<8, 4>(...)", False),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<c10::"
+     "BFloat16>>(int, ...)", False),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>(...)", False),
+])
+def test_library_gemm_records(record, want):
+    assert chip_smoke.is_library_gemm(record) == want

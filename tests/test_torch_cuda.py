@@ -404,3 +404,63 @@ def test_cuda_ssd_rejects_bad_inputs():
     wide = torch.zeros(2, 64, 160, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="N <= 128"):
         sc.ssd_chunk_cuda(x.to(torch.bfloat16), dt, a, wide, wide, chunk=32)
+
+
+# ------------------------------------------------------------------ models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8192, 2048), (512, 2048, 6144)])
+def test_cuda_xla_engine_accumulates_in_f32(shape):
+    """The xla engine's bf16 product on the card (torch.mm's out_dtype
+    overload, no f32 copies of the operands) against the product of the
+    operands cast to f32: the GEMM tolerance, 1e-5.  A bf16 reduction would
+    miss it by far (one bf16 ulp is 3.9e-3)."""
+    need_cuda()
+    from repro_torch.models.common import matmul
+    m, k, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(k, n, device="cuda", generator=gen).to(torch.bfloat16)
+    got = matmul(x, w, out_dtype=torch.float32)
+    want = torch.mm(x.float(), w.float())
+    assert got.dtype == torch.float32
+    assert rel_err(got, want) < 1e-5
+    assert rel_err(matmul(x, w), want) < 2 ** -8          # one rounding to bf16
+
+
+def moe_case(dtype, device):
+    """granite smoke's router and experts at batch 4 x 64 with capacity
+    factor 1.0 (tokens are dropped), weights and x from a seed on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_layer_params
+    m = get_config("granite-moe-3b-a800m", smoke=True).model
+    m = dataclasses.replace(m, dtype="float32", n_layers=1,
+                            moe=dataclasses.replace(m.moe, capacity_factor=1.0))
+    gen = torch.Generator().manual_seed(0)
+    p = init_layer_params(m, gen, torch.float32, "cpu")
+    x = torch.randn(4, 64, m.d_model, generator=gen)
+    p = {name: t.to(dtype).to(device) for name, t in p.items()}
+    return p, x.to(dtype).to(device), m
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dispatch_matches_cpu():
+    """moe_block on the card keeps the CPU's slots (f32: the same top-k and
+    the same kept entries), its output and loss within 1e-5 of the CPU's,
+    and two bf16 calls give the same bits (no atomics in the combine)."""
+    need_cuda()
+    from repro_torch.models import moe
+    p, x, m = moe_case(torch.float32, "cpu")
+    want, want_r = moe.moe_forward(p, x, m)
+    pc, xc, _ = moe_case(torch.float32, "cuda")
+    got, got_r = moe.moe_forward(pc, xc, m)
+    assert not want_r.keep.all()                        # tokens were dropped
+    assert torch.equal(got_r.top_i.cpu(), want_r.top_i)
+    assert torch.equal(got_r.keep.cpu(), want_r.keep)
+    assert rel_err(got.cpu(), want) < 1e-5
+    assert rel_err(moe.moe_block(pc, xc, m)[1].cpu(), moe.moe_block(p, x, m)[1]) < 1e-5
+    pb, xb, _ = moe_case(torch.bfloat16, "cuda")
+    first = moe.moe_forward(pb, xb, m)[0].clone()
+    assert torch.equal(moe.moe_forward(pb, xb, m)[0], first)

@@ -18,6 +18,7 @@ from repro_torch.config import EngineConfig
 from repro_torch.configs import get_config
 from repro_torch.kernels import rasa_gemm as rk
 from repro_torch.models import build_model
+from repro_torch.models.transformer import prompt_shape
 from repro_torch.serving import ServeSession
 
 BATCH, PROMPT, STEPS, MAX_SEQ = 2, 8, 6, 32
@@ -40,10 +41,11 @@ def model_of(arch, engine):
                        device="cuda", seed=0)
 
 
-def prompts(vocab, seed, batch=BATCH):
+def prompts(m, seed, batch=BATCH):
+    """[B, S] prompts of model config m, or [B, S, n_codebooks] for audio."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, vocab, (batch, PROMPT), generator=gen, device="cuda",
-                         dtype=torch.int32)
+    return torch.randint(0, m.vocab, prompt_shape(m, batch, PROMPT), generator=gen,
+                         device="cuda", dtype=torch.int32)
 
 
 def run(session, toks):
@@ -66,7 +68,7 @@ def test_qwen3_graphs_equal_eager(engine):
     graphed = ServeSession(model, MAX_SEQ, device="cuda")
     assert graphed.graphed
     assert_same(graphed, ServeSession(model, MAX_SEQ, device="cuda", eager=True),
-                prompts(model.model.vocab, 1))
+                prompts(model.model, 1))
 
 
 @pytest.mark.parametrize("engine", ["wls", "xla"])
@@ -76,7 +78,41 @@ def test_ssm_graphs_equal_eager(arch, engine):
     model = model_of(arch, engine)
     assert_same(ServeSession(model, MAX_SEQ, device="cuda"),
                 ServeSession(model, MAX_SEQ, device="cuda", eager=True),
-                prompts(model.model.vocab, 1))
+                prompts(model.model, 1))
+
+
+@pytest.mark.parametrize("engine", ["wls", "xla"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large"])
+def test_moe_and_audio_graphs_equal_eager(arch, engine):
+    """The MoE dispatch and combine (no atomics) and the audio family's
+    [B, n_codebooks] tokens replay as they run eagerly."""
+    need_cuda()
+    model = model_of(arch, engine)
+    toks = prompts(model.model, 1)
+    assert_same(ServeSession(model, MAX_SEQ, device="cuda"),
+                ServeSession(model, MAX_SEQ, device="cuda", eager=True), toks)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b"])
+def test_decode_past_max_seq_replays(arch):
+    """Decode steps past a full cache replay as they run eagerly: the
+    append's clamped index is computed on the device, so no replay goes out
+    of bounds (which would poison the context) and the logits stay finite."""
+    need_cuda()
+    model = model_of(arch, "wls")
+    toks = prompts(model.model, 1)
+    outs = []
+    for session in (ServeSession(model, PROMPT + 2, device="cuda"),
+                    ServeSession(model, PROMPT + 2, device="cuda", eager=True)):
+        logits = session.prefill(toks)
+        steps = []
+        for _ in range(4):
+            logits = session.decode_step(torch.argmax(logits, dim=-1).to(torch.int32))
+            steps.append(logits.clone())
+        outs.append(torch.stack(steps))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b"])
@@ -88,8 +124,8 @@ def test_successive_calls_and_two_batch_sizes(arch):
     model = model_of(arch, "wls")
     graphed = ServeSession(model, MAX_SEQ, device="cuda")
     eager = ServeSession(model, MAX_SEQ, device="cuda", eager=True)
-    v = model.model.vocab
-    cases = [prompts(v, 1), prompts(v, 2), prompts(v, 3, batch=BATCH + 1), prompts(v, 1)]
+    m = model.model
+    cases = [prompts(m, 1), prompts(m, 2), prompts(m, 3, batch=BATCH + 1), prompts(m, 1)]
     for toks in cases:
         assert_same(graphed, eager, toks)
     assert sorted((k[0], k[1]) for k in graphed._graphs) == [
@@ -109,7 +145,7 @@ def test_engine_change_captures_anew():
     need_cuda()
     model = model_of("qwen3-1.7b", "wls")
     graphed = ServeSession(model, MAX_SEQ, device="cuda")
-    toks = prompts(model.model.vocab, 1)
+    toks = prompts(model.model, 1)
     graphed.generate(toks, STEPS)
     cfg = model.cfg
     model.cfg = dataclasses.replace(cfg, engine=ENGINES["base"])
@@ -132,7 +168,7 @@ def test_failed_capture_raises():
         return step(token, state)
 
     model.decode_step = syncing_step
-    toks = prompts(model.model.vocab, 1)
+    toks = prompts(model.model, 1)
     with pytest.raises(RuntimeError):
         ServeSession(model, MAX_SEQ, device="cuda").generate(toks, STEPS)
     torch.cuda.synchronize()

@@ -44,6 +44,29 @@ def test_rope(dtype, theta):
     assert rel_err(to_np(got), want) < TOL[dtype]
 
 
+@pytest.mark.parametrize("head_dim,theta", [(16, 1e4), (128, 1e6)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mrope_three_streams(dtype, head_dim, theta):
+    """M-RoPE with temporal, height and width positions that differ (an
+    image grid's; serving passes t = h = w), split by mrope_sections."""
+    from repro.models.transformer import mrope_sections as j_sections
+    from repro_torch.models.transformer import mrope_sections
+    sections = mrope_sections(head_dim)
+    assert sections == j_sections(head_dim)
+    rng = np.random.default_rng(5)
+    pos = np.stack([np.broadcast_to(np.arange(7) + 3, (2, 7)),
+                    rng.integers(0, 16, (2, 7)), rng.integers(0, 16, (2, 7))]).astype(np.int32)
+    sin_j, cos_j = jl.rope_angles(jnp.asarray(pos), head_dim, theta, sections)
+    sin_t, cos_t = tl.rope_angles(torch.from_numpy(pos), head_dim, theta, sections)
+    assert sin_t.shape == (2, 7, head_dim // 2)
+    assert rel_err(to_np(sin_t), sin_j) < 1e-5
+    assert rel_err(to_np(cos_t), cos_j) < 1e-5
+    x = normal(rng, (2, 7, 4, head_dim), dtype)
+    want = jl.apply_rope(jnp.asarray(x), sin_j, cos_j)
+    got = tl.apply_rope(to_torch(x), sin_t, cos_t)
+    assert rel_err(to_np(got), want) < TOL[dtype]
+
+
 @pytest.mark.parametrize("softcap", [0.0, 5.0])
 @pytest.mark.parametrize("chunks", [(16, 32), (64, 64)])
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -21,9 +21,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.config import EngineConfig
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.models.transformer import prompt_shape
 from repro_torch.serving import ServeSession
 
-ARCHS = ["qwen3-1.7b", "mamba2-130m", "zamba2-2.7b"]
+ARCHS = ["qwen3-1.7b", "mamba2-130m", "zamba2-2.7b", "granite-moe-3b-a800m",
+         "grok-1-314b", "qwen2-vl-72b", "musicgen-large"]
 ENGINES = {"xla": EngineConfig(),
            "wls": EngineConfig(kind="pallas_rasa", schedule="wls", block_m=128,
                                block_k=128, block_n=128)}
@@ -49,9 +51,11 @@ def model_of(arch, engine="xla", seed=0):
                        device="cpu", seed=seed)
 
 
-def prompts(vocab, seed, batch=BATCH):
+def prompts(m, seed, batch=BATCH):
+    """[B, S] prompts of model config m, or [B, S, n_codebooks] for audio."""
     gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, vocab, (batch, PROMPT), generator=gen, dtype=torch.int32)
+    return torch.randint(0, m.vocab, prompt_shape(m, batch, PROMPT), generator=gen,
+                         dtype=torch.int32)
 
 
 def lengths(state):
@@ -63,7 +67,7 @@ def lengths(state):
 def test_steps_need_no_host(arch, engine):
     model = model_of(arch, engine)
     state = model.init_decode_state(BATCH, MAX_SEQ)
-    toks = prompts(model.model.vocab, 1)
+    toks = prompts(model.model, 1)
     with OpNames() as ops:
         logits, _ = model.prefill(toks, state)
         model.decode_step(torch.argmax(logits, -1).to(torch.int32), state)
@@ -79,7 +83,7 @@ def test_position_and_lengths_advance_in_place(arch):
     assert position.dtype == lens.dtype == torch.int32 and position.dim() == 0
     apps = len(state.caches if hasattr(state, "caches") else state.attn)
     assert lens.shape == (apps,)
-    toks = prompts(model.model.vocab, 1)
+    toks = prompts(model.model, 1)
     logits, after = model.prefill(toks, state)
     assert after.position is position and lengths(after) is lens
     assert position.item() == PROMPT and (lens == PROMPT).all()
@@ -95,8 +99,8 @@ def test_position_and_lengths_advance_in_place(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_session_resets_its_state_between_calls(arch):
     model = model_of(arch)
-    a, b = prompts(model.model.vocab, 2), prompts(model.model.vocab, 3)
-    c = prompts(model.model.vocab, 4, batch=1)
+    a, b = prompts(model.model, 2), prompts(model.model, 3)
+    c = prompts(model.model, 4, batch=1)
     session = ServeSession(model, MAX_SEQ, device="cpu")
     assert not session.graphed
     got = [session.generate(p, 5) for p in (a, b, c, a)]
@@ -111,6 +115,6 @@ def test_decode_step_follows_a_prefill_of_its_batch():
     session = ServeSession(model, MAX_SEQ, device="cpu")
     with pytest.raises(ValueError, match="after a prefill"):
         session.decode_step(torch.zeros(BATCH, dtype=torch.int32))
-    session.prefill(prompts(model.model.vocab, 1))
+    session.prefill(prompts(model.model, 1))
     with pytest.raises(ValueError, match="after a prefill"):
         session.decode_step(torch.zeros(BATCH + 1, dtype=torch.int32))
