@@ -12,7 +12,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      mamba2-130m, zamba2-2.7b, granite-moe-3b-a800m, musicgen-large,
      qwen2-vl-72b, grok-1-314b; tied heads through embedding.T, untied
      ones row-major, granite's N 49155 with rows not a multiple of 8) at
-     M = batch and at the prefill's M, and at ragged shapes, bf16 and f32,
+     M = batch and at the prefill's M (qwen3-1.7b's layers also at phase
+     10's M, 8 x 512), and at ragged shapes, bf16 and f32,
      and at f32-only M > 4 shapes of the SIMT kernels (wlbp chunks 2048
      and 3072 deep, M 300 across a cluster, A a column slice), with and
      without C: rel_err < 1e-5, schedules bit-identical;
@@ -85,7 +86,30 @@ Phases, each of which raises (exit code != 0) when it fails:
   9. serving qwen2-vl-72b (8 of 80 layers) and grok-1-314b (2 of 64) at
      full width and reduced depth, under wls graphed and eager (bit for
      bit; one timed generation each), with the xla engine's prefill logits
-     beside wls's.
+     beside wls's;
+ 10. training qwen3-1.7b and mamba2-130m at full width and depth (bf16,
+     random weights from seed 0, the xla engine, AdamW with f32 moments,
+     global batch 8 x 512 in 2 microbatches, remat full, warm-up 2 of 8
+     steps) through TrainLoop with a checkpoint every 4 steps into a
+     directory under build/: each step's loss, grad_norm, lr and host-clock
+     ms; every parameter's gradient finite and nonzero, the losses finite
+     and the last below the first, no step retried; tokens/s and the
+     model FLOPs' share of the bf16 peak from the median of steps 1-3
+     (before the first save), beside the median of steps 4-7 (the
+     checkpoint writer's thread running) and of the resumed steps 5-7 (no
+     writer); peak device memory; the step-4 checkpoint restored in place
+     into a fresh state (bit for bit the state the loop held there) and
+     steps 4-7 rerun from it (losses within 1e-3 of the first run's;
+     bit-equal or not, printed); a traced step (device busy time, idle
+     share, library GEMMs, the top kernels), the loss forward and AdamW
+     alone; and for qwen3-1.7b the forward loss under pallas_rasa (wls)
+     against xla's (rtol = atol = 0.02), with the wrapper's wls launches
+     counted from 0 over it: 7 per layer, 196; then every wls call of
+     that forward against the plain version on its own inputs (rel_err <
+     1e-5); first, how far the xla engine's bf16 products (out_dtype, over
+     the whole contraction and in pieces) and the f32-cast ones are from
+     the exact (f64) product at the contractions of dot_f32's backward
+     (8192 and 12288).
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -96,6 +120,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -311,7 +336,8 @@ def gemm_launches_per_forward(m, bk: int) -> dict[str, int]:
 def check_gemm(torch, rk, configs) -> dict[str, float]:
     """Phase 3, GEMM: every schedule against the plain version; returns the
     max abs error per schedule.  Each model's distinct (K, N) at M = batch
-    (decode) and M = batch * prompt (prefill), its head at M = batch and
+    (decode) and M = batch * prompt (prefill), TRAIN_RASA's also at phase
+    10's M (global batch * sequence: its pallas_rasa loss), its head at M = batch and
     512 (a tied head reads embedding.T in place, an untied one is row-major
     [d, head_width]), and ragged shapes, in bf16 and f32; then f32-only
     M > 4 cases of the SIMT kernels: wlbp chunks deeper than the bf16 block
@@ -329,8 +355,10 @@ def check_gemm(torch, rk, configs) -> dict[str, float]:
         m = cfg.model
         prefill_m = BATCH * (SSM_PROMPT if m.family in ("ssm", "hybrid") else PROMPT)
         head = (m.d_model, head_width(m), m.tie_embeddings)
+        train_m = (TRAIN["global_batch"] * TRAIN["seq_len"],) if m.name == TRAIN_RASA else ()
         for k, n, transposed in [(k, n, False) for k, n, _ in layer_shapes(m)] + [head]:
-            for mm in (BATCH, 512 if (k, n, transposed) == head else prefill_m):
+            for mm in ((BATCH, 512) if (k, n, transposed) == head
+                       else (BATCH, prefill_m, *train_m)):
                 if (mm, k, n, transposed) not in seen:
                     seen.add((mm, k, n, transposed))
                     cases.append((mm, k, n, transposed, main))
@@ -1512,6 +1540,342 @@ def serve_reduced(torch, rk, arch: str, layers: int) -> dict:
     return results
 
 
+# ------------------------------------------------------------------- train
+
+TRAIN_ARCHS = ("qwen3-1.7b", "mamba2-130m")
+TRAIN_RASA = "qwen3-1.7b"      # the arch whose loss phase 10 also takes under pallas_rasa
+TRAIN = dict(global_batch=8, seq_len=512, microbatches=2, lr=3e-4, warmup_steps=2,
+             total_steps=8)
+TRAIN_RESUME_AT = 4            # checkpoint_every: the step the resumed run restores
+TRAIN_RTOL = 1e-3              # resumed losses against the first run's
+RASA_LOSS_TOL = 0.02           # tests/test_arch_smoke.py::test_pallas_engine_integration
+PREDICTION_TRAIN = (
+    "qwen3-1.7b FULL, batch 8 x 512, 2 microbatches, remat full, AdamW f32 moments: "
+    "300-700 ms/step (6k-14k tokens/s), model FLOPs 6-15% of the bf16 peak, peak device "
+    "memory 28-40 GB; mamba2-130m FULL: 150-600 ms/step, under 2% of the peak, 3-12 GB. "
+    "Resumed losses bit-equal to the first run's. pallas_rasa (wls) loss within 0.005 of "
+    "xla's.")
+
+
+def model_flops(m, tokens: int) -> float:
+    """The model FLOPs of one train step over ``tokens`` tokens of length
+    TRAIN["seq_len"]: 6 N per token (N = ModelConfig.param_count(), the
+    embedding counted once) plus attention's 12 L H hd S per token (PaLM's
+    count: QK^T and PV, forward and backward, without the causal half); the
+    remat re-forward is not counted.  An attention-free model has no second
+    term (the SSD scan's operations are not counted)."""
+    attn_layers = {"ssm": 0, "hybrid": m.n_layers // m.hybrid.attn_every
+                   if m.hybrid else 0}.get(m.family, m.n_layers)
+    attn = 12 * attn_layers * m.n_heads * m.resolved_head_dim * TRAIN["seq_len"]
+    return (6 * m.param_count() + attn) * tokens
+
+
+def state_bits(torch, state) -> list:
+    """Every leaf of a TrainState as raw bytes, on its device (a snapshot)."""
+    from repro_torch.checkpoint.store import flatten_with_names
+    return [t.detach().reshape(-1).view(torch.uint8).clone()
+            for _, t in flatten_with_names(state)]
+
+
+def train_steps(torch, step_fn, card: str, label: str, records: list):
+    """step_fn timed on the host clock (synchronised before and after),
+    each step's loss, grad_norm, lr and ms appended to records and
+    printed."""
+    def step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        row = {k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")}
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        row["step"] = int(state.step) - 1
+        records.append(row)
+        print(f"train {label} step {row['step']}: loss {row['loss']:.6f} grad_norm "
+              f"{row['grad_norm']:.6f} lr {row['lr']:.6g} {row['ms']:.3f} ms | {card}")
+        return state, metrics
+    return step
+
+
+def check_gradients(torch, model, batch) -> int:
+    """One forward and backward outside the loop: every parameter has a
+    finite gradient that is not all zero.  Returns the parameter count."""
+    loss, _ = model.loss(batch)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    for name, g in zip(names, grads):
+        if g is None or not torch.isfinite(g).all() or not g.any():
+            raise AssertionError(f"train: parameter {name} has no usable gradient")
+    return len(names)
+
+
+def rasa_loss_check(torch, rk, model, cfg, batch, card: str) -> dict:
+    """The forward loss of the trained parameters on one batch under the
+    xla engine and under pallas_rasa (wls), under torch.no_grad(): within
+    RASA_LOSS_TOL, and the wrapper's wls launches counted from 0 over the
+    RASA forward (7 projections a layer; the CE head is not an engine
+    product).  Then the RASA forward again, every wls call's output held
+    to the plain version on its own inputs at REL_TOL (the kernel at this
+    path's shapes and activations; the plain version launches no kernel)."""
+    from repro_torch.kernels import ops
+    with torch.no_grad():
+        timed = {}
+        for name in ("xla", "wls"):
+            model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, name))
+            if name == "wls":
+                for s in rk.launches:
+                    rk.launches[s] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(batch)
+            loss = float(loss)
+            timed[name] = (loss, (time.perf_counter() - t0) * 1e3)
+            if name == "wls":
+                launches = dict(rk.launches)
+        kernel, errs = ops.rasa_gemm, []
+
+        def held(a, b, c=None, **kw):
+            out = kernel(a, b, c, **kw)
+            want = rk.rasa_gemm_plain(a, b, c, **kw)
+            errs.append(((a.shape[0], *b.shape), rel_err(out, want)))
+            return out
+
+        ops.rasa_gemm = held
+        try:
+            model.loss(batch)
+        finally:
+            ops.rasa_gemm = kernel
+    model.cfg = cfg
+    worst_shape, worst = max(errs, key=lambda e: e[1])
+    print(f"train {cfg.model.name}: {len(errs)} wls calls of the pallas_rasa loss against "
+          f"the plain version on their inputs: max rel_err {worst:.3g} at (M, K, N) "
+          f"{worst_shape} (< {REL_TOL}) | {card}")
+    if len(errs) != 7 * cfg.model.n_layers or not worst < REL_TOL:
+        raise AssertionError(f"train: {len(errs)} wls calls, max rel_err {worst} at "
+                             f"{worst_shape}, want {7 * cfg.model.n_layers} under {REL_TOL}")
+    (lx, mx), (lr_, mr) = timed["xla"], timed["wls"]
+    want = 7 * cfg.model.n_layers
+    print(f"train {cfg.model.name}: forward loss xla {lx:.6f} ({mx:.3f} ms), pallas_rasa wls "
+          f"{lr_:.6f} ({mr:.3f} ms), |diff| {abs(lr_ - lx):.6g}; wls launches "
+          f"{launches['wls']} (want {want}) | {card}")
+    if not abs(lr_ - lx) <= RASA_LOSS_TOL * (1 + abs(lx)):
+        raise AssertionError(f"train: pallas_rasa loss {lr_} vs xla {lx} beyond "
+                             f"rtol = atol = {RASA_LOSS_TOL}")
+    if launches["wls"] != want or launches["base"] or launches["wlbp"]:
+        raise AssertionError(f"train: RASA launches {launches}, want wls {want}")
+    return {"xla_loss": lx, "wls_loss": lr_, "xla_ms": mx, "wls_ms": mr,
+            "launches": launches["wls"], "calls_max_rel_err": worst}
+
+
+def train_trace(torch, model, step_fn, state, batch, label: str, card: str) -> dict:
+    """One more train step traced by torch.profiler (after another as its
+    warm-up; both update the state, after the checks): its device busy ms,
+    the idle share of its window, the library GEMMs' device ms (cuBLAS's
+    records; the bf16 products and the f32 ones alike), and the ten kernels
+    that took the most device time, by name (records summed).  Beside it,
+    by CUDA events over 3 calls each: the loss forward of one microbatch
+    under torch.no_grad(), and one AdamW update of every parameter (zero
+    gradients: the same work)."""
+    from repro_torch.optim import adamw_update
+    tr = model.cfg.train
+    rows = TRAIN["global_batch"] // tr.microbatches
+    with torch.no_grad():
+        forward = event_ms(torch, lambda: model.loss({k: v[:rows] for k, v in batch.items()}), 3)
+    zeros = {n: torch.zeros_like(p) for n, p in state.params.items()}
+    optimizer = event_ms(torch, lambda: adamw_update(state.params, zeros, state.opt, lr=tr.lr), 3)
+    del zeros
+    prof = profiled(torch, lambda: step_fn(state, batch))
+    spans = device_spans(prof)
+    by_name: dict[str, list] = {}
+    for name, a, b in spans:
+        row = by_name.setdefault(kernel_name(name), [0, 0.0, is_library_gemm(name)])
+        row[0] += 1
+        row[1] += (b - a) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    out = {"forward_ms": forward, "optimizer_ms": optimizer,
+           "busy_ms": busy_us([(a, b) for _, a, b in spans]) / 1e3,
+           "idle_share": idle_share(spans), "records": len(spans),
+           "library_gemm_ms": sum(v[1] for v in by_name.values() if v[2]),
+           "top": {k: {"records": v[0], "ms": v[1]} for k, v in top}}
+    print(f"train {label}: loss forward of one microbatch {forward:.3f} ms, AdamW update "
+          f"{optimizer:.3f} ms (CUDA events); traced step busy {out['busy_ms']:.3f} ms, idle share "
+          f"{out['idle_share']:.4f}, {out['records']} records, library GEMMs "
+          f"{out['library_gemm_ms']:.3f} ms; top kernels (ms): "
+          + ", ".join(f"{k} {v['ms']:.3f} ({v['records']})" for k, v in out["top"].items())
+          + f" | {card}")
+    return out
+
+
+#: the contractions of dot_f32's backward probed by product_precision:
+#: aᵀ G over the tokens of a microbatch of 8192, G wᵀ over 2 d_ff of
+#: qwen3-1.7b (the fused gate/up, 12288); (x, y) shapes of x @ y
+PRECISION_CASES = {"aT_G_8192": ((2048, 8192), (8192, 1024)),
+                   "G_wT_12288": ((2048, 12288), (12288, 2048))}
+PRECISION_PIECES = (None, 4096, 2048, 1024, 512)
+
+
+def product_precision(torch, card: str) -> dict:
+    """How far the xla engine's bf16 products are from the exact (f64)
+    product at the contractions of dot_f32's backward (PRECISION_CASES; x a
+    transposed view where the backward reads one; mm and a bmm of 2): the
+    f32-cast product, the ``out_dtype`` overload over the whole contraction
+    (``_product``, the forward's route) and in pieces of 4096 .. 512 summed
+    in fp32 (``_grad_product``; the backward takes GRAD_K_PIECE).  Max
+    error over max."""
+    from repro_torch.models.common import GRAD_K_PIECE, _grad_product, _product
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    rel = lambda x, ref: ((x.double() - ref).abs().max() / ref.abs().max()).item()
+    out = {"grad_k_piece": GRAD_K_PIECE}
+    for op in ("mm", "bmm"):
+        fn, lead = getattr(torch, op), (2,) if op == "bmm" else ()
+        for case, ((m, k), (_, n)) in PRECISION_CASES.items():
+            if case.startswith("aT"):     # aᵀ: a [k, m] read transposed
+                x = torch.randn(*lead, k, m, device=DEV, generator=gen).to(
+                    torch.bfloat16).transpose(-1, -2)
+                y = torch.randn(*lead, k, n, device=DEV, generator=gen).to(torch.bfloat16)
+            else:                         # wᵀ: w [n, k] read transposed
+                x = torch.randn(*lead, m, k, device=DEV, generator=gen).to(torch.bfloat16)
+                y = torch.randn(*lead, n, k, device=DEV, generator=gen).to(
+                    torch.bfloat16).transpose(-1, -2)
+            exact = fn(x.double(), y.double())
+            row = {"f32_vs_f64": rel(fn(x.float(), y.float()), exact)}
+            for piece in PRECISION_PIECES:
+                got = _product(fn, x, y) if piece is None else _grad_product(fn, x, y, piece)
+                row[f"out_dtype_{piece or 'whole'}_vs_f64"] = rel(got, exact)
+            out[f"{op}_{case}"] = row
+            del x, y, exact
+    torch.cuda.empty_cache()
+    print("train: bf16 products at the backward's contractions (max error over max): "
+          + json.dumps(out) + f" | {card}")
+    return out
+
+
+def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
+    """Phase 10: ``arch`` at full width and depth, random weights (seed 0),
+    TRAIN through TrainLoop (checkpoints every TRAIN_RESUME_AT steps into a
+    directory under build/), with every step timed; the losses finite and
+    falling, every parameter's gradient present, no step retried.  Then the
+    step-TRAIN_RESUME_AT checkpoint restored into a fresh state (seed 1):
+    equal bit for bit to the state the loop held there, and steps
+    TRAIN_RESUME_AT.. rerun from it, within TRAIN_RTOL of the first run.
+    With ``rasa``, the forward loss under pallas_rasa against xla's."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.training import (LoopConfig, TrainLoop, build_train_step,
+                                      init_train_state)
+    cfg = dataclasses.replace(get_config(arch), train=TrainConfig(**TRAIN))
+    m = cfg.model
+    data = SyntheticLMDataset(m, seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"],
+                              seed=1)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build"))
+    try:
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device=DEV, seed=0)
+        state = init_train_state(model)
+        n_params = check_gradients(torch, model, data.batch(0))
+        print(f"train {m.name}: {n_params} parameters, each with a finite, nonzero gradient")
+        torch.cuda.reset_peak_memory_stats()
+        first, snap = [], {}
+
+        def at_step(step):
+            if step == TRAIN_RESUME_AT:
+                torch.cuda.synchronize()
+                snap["peak"] = torch.cuda.max_memory_allocated()
+                snap["bits"] = state_bits(torch, state)
+
+        loop = TrainLoop(train_steps(torch, build_train_step(model), card, m.name, first),
+                         state, data.batch,
+                         LoopConfig(total_steps=TRAIN["total_steps"],
+                                    checkpoint_every=TRAIN_RESUME_AT,
+                                    checkpoint_dir=str(ckpt_dir), log_every=TRAIN["total_steps"]),
+                         fault_hook=at_step)
+        t0 = time.perf_counter()
+        loop.run()
+        run_s = time.perf_counter() - t0
+        losses = [r["loss"] for r in first]
+        if loop.restarts or len(first) != TRAIN["total_steps"]:
+            raise AssertionError(f"train {m.name}: {loop.restarts} restarts, "
+                                 f"{len(first)} steps")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train {m.name}: losses {losses} not finite and falling")
+        rasa_row = rasa_loss_check(torch, rk, model, cfg, data.batch(0), card) if rasa else None
+        del loop, state, model
+        torch.cuda.empty_cache()
+
+        fresh = build_model(cfg, device=DEV, seed=1)
+        resumed = init_train_state(fresh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        at = restore_into(ckpt_dir, resumed, step=TRAIN_RESUME_AT)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # device memory the restore took beyond the state it writes into
+        restore_extra_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+        saved = snap.pop("bits")
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(state_bits(torch, resumed), saved, strict=True))
+        del saved
+        if not equal:
+            raise AssertionError(f"train {m.name}: the restored state differs from the "
+                                 f"state at step {TRAIN_RESUME_AT}")
+        second = []
+        step = train_steps(torch, build_train_step(fresh), card, f"{m.name} resumed", second)
+        for s in range(TRAIN_RESUME_AT, TRAIN["total_steps"]):
+            step(resumed, data.batch(s))
+        again = [r["loss"] for r in second]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(again, losses[TRAIN_RESUME_AT:]))
+        bit_equal = again == losses[TRAIN_RESUME_AT:]
+        if not rel <= TRAIN_RTOL:
+            raise AssertionError(f"train {m.name}: resumed losses {again} vs "
+                                 f"{losses[TRAIN_RESUME_AT:]}: rel {rel} > {TRAIN_RTOL}")
+        ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file()) / 1e9
+        trace = train_trace(torch, fresh, build_train_step(fresh), resumed,
+                            data.batch(TRAIN["total_steps"]), m.name, card)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del fresh, resumed, step
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    # steps 1..TRAIN_RESUME_AT-1 run before the first save; the later ones
+    # beside the checkpoint writer's thread; the resumed run saves nothing
+    ms = statistics.median(r["ms"] for r in first[1:TRAIN_RESUME_AT])
+    ms_writer = statistics.median(r["ms"] for r in first[TRAIN_RESUME_AT:])
+    ms_resumed = statistics.median(r["ms"] for r in second[1:])
+    flops = model_flops(m, tokens)
+    row = {"arch": arch, "step_ms": [r["ms"] for r in first], "median_step_ms": ms,
+           "median_step_ms_beside_writer": ms_writer,
+           "resumed_step_ms": [r["ms"] for r in second], "median_resumed_step_ms": ms_resumed,
+           "tokens_per_s": tokens / ms * 1e3, "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in first], "lrs": [r["lr"] for r in first],
+           "resumed_losses": again, "resumed_max_rel": rel, "resumed_bit_equal": bit_equal,
+           "restored_bit_equal": equal, "restore_s": restore_s,
+           "restore_extra_gb": restore_extra_gb, "run_s": run_s,
+           "checkpoint_gb_on_disk": ckpt_gb,
+           "peak_gb_steps_0_3": snap["peak"] / 1e9, "model_flops": flops,
+           "bf16_peak_share": flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+           "parameters": m.param_count(), "rasa": rasa_row, "trace": trace, "card": card}
+    print(f"train {m.name}: median step {ms:.3f} ms (steps 1-{TRAIN_RESUME_AT - 1}, before "
+          f"the first save; step 0 {first[0]['ms']:.3f} ms; steps {TRAIN_RESUME_AT}-"
+          f"{TRAIN['total_steps'] - 1} beside the checkpoint writer {ms_writer:.3f} ms; "
+          f"resumed steps {TRAIN_RESUME_AT + 1}-{TRAIN['total_steps'] - 1}, no writer, "
+          f"{ms_resumed:.3f} ms) -> {row['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4g} a step -> "
+          f"{row['bf16_peak_share']:.4f} of the bf16 peak (989 TFLOP/s); peak device memory "
+          f"{row['peak_gb_steps_0_3']:.3f} GB (steps 0-3); loop {run_s:.3f} s with "
+          f"checkpoints; restore of step {at} {restore_s:.3f} s (in place, "
+          f"{restore_extra_gb:.3f} GB of device memory beyond the state), state bit-equal "
+          f"{equal}; "
+          f"resumed losses max rel {rel:.3g}, bit-equal {bit_equal} | {card}")
+    return row
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -1548,6 +1912,7 @@ def main() -> int:
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
     print("prediction (written before the first run of phases 8 and 9): " + PREDICTION_FAMILIES)
+    print("prediction (written before the first run of phase 10): " + PREDICTION_TRAIN)
     phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
     phase("check")
     worst = check_gemm(torch, rk, (qwen, mamba, zamba, *map(get_config, FAMILY_ARCHS),
@@ -1585,6 +1950,11 @@ def main() -> int:
     for arch, layers in REDUCED.items():
         phase(f"serve {arch} at reduced depth")
         reduced[arch] = serve_reduced(torch, rk, arch, layers)
+    trained = {"product_precision": product_precision(torch, card)}
+    for arch in TRAIN_ARCHS:
+        phase(f"train {arch}")
+        trained[arch] = train(torch, rk, arch, card, rasa=arch == TRAIN_RASA)
+    print("train: " + json.dumps(trained))
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
@@ -1602,6 +1972,9 @@ def main() -> int:
             "replayed_launches_per_forward": {
                 part: int(results[s]["graphed"]["trace"][part]["gemm_records_per_call"])
                 for part in ("prefill", "decode")},
+            "train_launches": (trained["qwen3-1.7b"]["rasa"]["launches"] if s == "wls" else 0),
+            "train_launches_note": "phase 10: one forward loss of qwen3-1.7b FULL under "
+                                   "pallas_rasa, the counts set to 0 just before it",
             "decode_graph": results[s]["decode_graph"],
             "replayed_gemm_busy_ms": {
                 part: results[s]["graphed"]["trace"][part]["gemm_busy_ms_per_call"]

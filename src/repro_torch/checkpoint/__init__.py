@@ -1,0 +1,7 @@
+"""Checkpointing: async, atomic, checksummed."""
+
+from .store import (CheckpointManager, latest_step, restore_checkpoint,
+                    restore_into, save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint", "restore_into",
+           "save_checkpoint"]

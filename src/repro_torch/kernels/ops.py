@@ -16,12 +16,35 @@ from .flash_attention import flash_attention, flash_attention_plain
 from .rasa_gemm import GemmBlocks, rasa_gemm, rasa_gemm_plain
 
 
+FORWARD_ONLY = ("the RASA engine (pallas_rasa) is forward-only, as the reference's "
+                "Pallas engine is: its GEMM has no backward; differentiate under the "
+                "xla engine")
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """The RASA GEMM inside autograd: its output carries a derivative that
+    raises, so a backward through it fails on either device instead of
+    giving the plain version's gradient on the CPU and none on the card.
+    With no input that needs a gradient, or under ``torch.no_grad()``,
+    ``apply`` records nothing and this is the GEMM alone."""
+
+    @staticmethod
+    def forward(ctx, fn, a, b, c, kw):
+        return fn(a, b, c, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(FORWARD_ONLY)
+
+
 def rasa_matmul(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
                 *, schedule: str = "wls", blocks: GemmBlocks | None = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """C (+)= A @ B with the RASA schedule, any 2D shapes."""
+    """C (+)= A @ B with the RASA schedule, any 2D shapes.  Forward-only:
+    a backward through the result raises (``FORWARD_ONLY``)."""
     fn = rasa_gemm_plain if a.device.type == "cpu" else rasa_gemm
-    return fn(a, b, c, schedule=schedule, blocks=blocks, out_dtype=out_dtype)
+    kw = dict(schedule=schedule, blocks=blocks, out_dtype=out_dtype)
+    return _ForwardOnly.apply(fn, a, b, c, kw)
 
 
 def flash_block(block: int, s: int) -> int:

@@ -17,7 +17,9 @@ from .convert import params_from_jax
 from .ssm_lm import HybridState, SSMLanguageModel
 from .transformer import DecodeState, Transformer
 
-#: either model class: the same prefill / decode_step / init_decode_state
+#: either model class, the port's counterpart of the reference's ModelApi:
+#: the same loss / prefill / decode_step / init_decode_state (parameters
+#: are made trainable by ``training.init_train_state``)
 Model = Transformer | SSMLanguageModel
 
 

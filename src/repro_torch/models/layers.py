@@ -224,8 +224,9 @@ def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         if "w_gate_up" in p:
             # fused gate+up: one GEMM, x read once (WL-skip analogue)
             w = p["w_gate_up"]
-            gu = dot_f32(torch.mm, x.reshape(-1, w.shape[0]), w.reshape(w.shape[0], -1))
-            gu = gu.reshape(*x.shape[:2], *w.shape[1:]).to(x.dtype)
+            gu = dot_f32(torch.mm, x.reshape(-1, w.shape[0]), w.reshape(w.shape[0], -1),
+                         x.dtype)
+            gu = gu.reshape(*x.shape[:2], *w.shape[1:])
             g, u = gu[:, :, 0], gu[:, :, 1]
         else:
             g = matmul(x, p["w_gate"], engine)

@@ -58,13 +58,13 @@ def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     dtype = buf.dtype
     if "experts_w_gate_up" in p:
         w = p["experts_w_gate_up"]                       # [E, D, 2, Fe]
-        gu = dot_f32(torch.bmm, buf, w.reshape(w.shape[0], w.shape[1], -1)).to(dtype)
+        gu = dot_f32(torch.bmm, buf, w.reshape(w.shape[0], w.shape[1], -1), dtype)
         gu = gu.reshape(*gu.shape[:2], 2, -1)
         gate, up = gu[:, :, 0], gu[:, :, 1]
     else:
-        gate = dot_f32(torch.bmm, buf, p["experts_w_gate"]).to(dtype)
-        up = dot_f32(torch.bmm, buf, p["experts_w_up"]).to(dtype)
-    return dot_f32(torch.bmm, F.silu(gate) * up, p["experts_w_down"]).to(dtype)
+        gate = dot_f32(torch.bmm, buf, p["experts_w_gate"], dtype)
+        up = dot_f32(torch.bmm, buf, p["experts_w_up"], dtype)
+    return dot_f32(torch.bmm, F.silu(gate) * up, p["experts_w_down"], dtype)
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Routing]:

@@ -6,8 +6,8 @@ weight set) is applied after every ``attn_every`` Mamba layers, each
 application with its own KV cache (the reference's single-shared-block
 simplification of Zamba2).  The layer loop is a plain Python loop (the
 reference's scanned and unrolled forms give the same numbers).  Serving
-only: the training loss waits for the training slice (ROADMAP queue 1,
-item 10).
+runs ``prefill``/``decode_step`` on a ``HybridState`` updated in place;
+training runs ``loss`` on a stateless backbone (``run_backbone_train``).
 """
 
 from __future__ import annotations
@@ -22,8 +22,9 @@ from .common import dtype_of, embed_init, he_init
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
 from .ssm import SSMState, init_ssm_state, mamba2_block, ssm_dims
-from .transformer import (ParamBlock, _param, check_family, embed_tokens,
-                          logits_from, positions_for)
+from .transformer import (ParamBlock, _param, batch_tensor, check_family,
+                          embed_tokens, head_loss, logits_from, positions_for,
+                          remat)
 
 SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -141,6 +142,31 @@ def run_backbone(model: "SSMLanguageModel", x: torch.Tensor, state: HybridState,
     return x
 
 
+def run_backbone_train(model: "SSMLanguageModel", x: torch.Tensor, sin=None, cos=None,
+                       policy: str = "full") -> torch.Tensor:
+    """The backbone with no state, for training: every Mamba2 layer runs the
+    chunked SSD from a zero state, the hybrid's shared block attends
+    causally over x with no cache, and each of them is rematerialised per
+    ``remat(policy)`` (the reference also nests each group of layers in a
+    checkpoint, which changes only memory).  Returns x."""
+    cfg, engine = model.model, model.cfg.engine
+    every = cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
+
+    def mamba_layer(layer, h):
+        out, _ = mamba2_block(layer, rms_norm(h, layer["norm1"], cfg.rms_eps), cfg, engine)
+        return h + out
+
+    def shared(h, sin, cos):
+        return _shared_block(model.shared_attn, h, cfg, engine, sin, cos, None)[0]
+
+    mamba_layer, shared = remat(mamba_layer, policy), remat(shared, policy)
+    for i, layer in enumerate(model.layers):
+        x = mamba_layer(layer, x)
+        if every and (i + 1) % every == 0:
+            x = shared(x, sin, cos)
+    return x
+
+
 class SSMLanguageModel(nn.Module):
     """The ssm / hybrid language model: embedding, ``ModuleList`` of Mamba2
     layers, the hybrid's shared attention block, final norm and LM head
@@ -190,6 +216,20 @@ class SSMLanguageModel(nn.Module):
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         return HybridState(ssm, [KVCache(k[i], v[i], lengths[i]) for i in range(apps)],
                            position, (k, v, lengths))
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss of the reference's ``loss_fn``: batch holds
+        tokens [B, S] and labels [B, S] (S a multiple of the SSD chunk, or
+        below it); the hybrid's RoPE runs at positions 0..S-1.  Returns (ce,
+        {"ce", "aux_loss" (0), "n_valid"})."""
+        tokens = batch_tensor(self, batch, "tokens")
+        b, s = tokens.shape
+        x = embed_tokens(self, tokens)
+        sin, cos = self._rope(b, s, 0)
+        x = run_backbone_train(self, x, sin, cos, self.cfg.parallel.remat)
+        ce, n_valid = head_loss(self, x, batch_tensor(self, batch, "labels"))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce, {"ce": ce, "aux_loss": aux, "n_valid": n_valid}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,

@@ -4,8 +4,12 @@ Counterpart of the JAX package's ``models/transformer.py``.  The model is an
 ``nn.Module`` (``Transformer``) holding a ``ModuleList`` of decoder blocks;
 the layer loop is a plain Python loop (the reference scans over stacked
 [L, ...] parameters; ``convert.params_from_jax`` unstacks them).
-Parameters keep the reference's names and [in, out] layouts, and are
-inference-only (``requires_grad=False``).  The families:
+Parameters keep the reference's names and [in, out] layouts; they are
+built with ``requires_grad=False`` and made trainable by
+``training.init_train_state``.  Serving runs ``prefill``/``decode_step``
+under ``torch.no_grad()``; training runs ``loss``, the reference's
+``loss_fn``, with each layer rematerialised per ``ParallelConfig.remat``.
+The families:
 
 - dense: the GQA decoder (nemotron, qwen3, gemma);
 - moe: the same with a top-k MoE FFN (grok, granite; ``moe.py``);
@@ -19,16 +23,19 @@ The ssm and hybrid families live in ``ssm_lm.py``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import EngineConfig, ModelConfig, RunConfig
-from .common import dtype_of, embed_init, he_init, matmul
+from .common import chunked_cross_entropy, dtype_of, embed_init, he_init, matmul
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
-from .moe import moe_forward
+from .moe import moe_block, moe_forward
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -166,6 +173,61 @@ def decoder_block(params_l, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp_block(params_l, h, cfg, engine), new_cache
 
 
+def train_block(params_l, x: torch.Tensor, cfg: ModelConfig, engine: EngineConfig,
+                sin, cos) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The training form of decoder_block (no cache): returns (x, the MoE's
+    auxiliary loss, or None for a dense FFN), as the reference's
+    decoder_block does for training."""
+    h = rms_norm(x, params_l["norm1"], cfg.rms_eps)
+    attn_out, _ = attention_block(params_l, h, cfg, engine, sin, cos)
+    x = x + attn_out
+    h = rms_norm(x, params_l["norm2"], cfg.rms_eps)
+    if cfg.moe is not None:
+        ffn_out, aux = moe_block(params_l, h, cfg)
+        return x + ffn_out, aux
+    return x + mlp_block(params_l, h, cfg, engine), None
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2D products (the reference's
+    checkpoint_dots_with_no_batch_dims), recompute everything else."""
+    if op._overloadpacket is torch.ops.aten.mm:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str):
+    """fn rematerialised in the backward per ``ParallelConfig.remat``, as
+    the reference's ``_remat``: "full" keeps only fn's inputs
+    (non-reentrant ``torch.utils.checkpoint``), "dots" also keeps the
+    outputs of its 2D products (selective checkpointing), "none" keeps
+    everything.  No policy changes a number."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_products))
+    raise ValueError(f"unknown remat policy {policy!r}; one of full, dots, none")
+
+
+def run_layers_train(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
+                     engine: EngineConfig, sin, cos,
+                     policy: str = "full") -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack for training, each layer under ``remat(policy)``;
+    returns (x, the sum of the layers' auxiliary losses, fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat(functools.partial(train_block, cfg=cfg, engine=engine), policy)
+    for layer in blocks:
+        x, aux_l = block(layer, x, sin=sin, cos=cos)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return x, aux
+
+
 class DecoderBlock(ParamBlock):
     """One decoder layer's parameters; calling it runs the block."""
 
@@ -233,6 +295,27 @@ def logits_from(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def head_loss(model: nn.Module, x: torch.Tensor,
+              labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final norm, then the chunked CE of the LM head (the embedding,
+    transposed, when tied) against labels, for either model class: (ce, the
+    count of valid labels).  Audio's logits are split per codebook."""
+    m = model.cfg.model
+    x = rms_norm(x, model.final_norm, m.rms_eps)
+    head = model.embedding.T if m.tie_embeddings else model.lm_head
+    logits_fn = None
+    if m.family == "audio":
+        logits_fn = lambda lg: lg.reshape(*lg.shape[:-1], m.n_codebooks, m.vocab)
+    return chunked_cross_entropy(x, head, labels, chunk=model.cfg.engine.ce_chunk,
+                                 logits_fn=logits_fn)
+
+
+def batch_tensor(model: nn.Module, batch: dict, name: str) -> torch.Tensor | None:
+    """batch[name] (a tensor or a numpy array) on the model's device, or None."""
+    t = batch.get(name)
+    return None if t is None else torch.as_tensor(t, device=model.device)
+
+
 class DecodeState(NamedTuple):
     """Updated in place by prefill and decode_step, so a replayed CUDA graph
     sees the new values."""
@@ -291,6 +374,27 @@ class Transformer(nn.Module):
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         return DecodeState([KVCache(k[i], v[i], lengths[i]) for i in range(m.n_layers)],
                            position, (k, v, lengths))
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss of the reference's ``loss_fn``: batch holds
+        tokens [B, S] and labels [B, S] (audio: [B, S, n_codebooks]; vlm:
+        also patch_embeds [B, P, D], whose positions carry label -100).
+        Returns (ce + the MoE's auxiliary loss, {"ce", "aux_loss",
+        "n_valid"}).  Differentiable under the xla engine."""
+        m = self.model
+        patches = batch_tensor(self, batch, "patch_embeds")
+        x = embed_tokens(self, batch_tensor(self, batch, "tokens"), patches)
+        b, s = x.shape[:2]
+        sin, cos = self._rope(b, s, 0)
+        x, aux = run_layers_train(self.layers, x, m, self.cfg.engine, sin, cos,
+                                  self.cfg.parallel.remat)
+        labels = batch_tensor(self, batch, "labels")
+        if m.family == "vlm" and patches is not None:
+            pad = torch.full((b, patches.shape[1], *labels.shape[2:]), -100,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        ce, n_valid = head_loss(self, x, labels)
+        return ce + aux, {"ce": ce, "aux_loss": aux, "n_valid": n_valid}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,

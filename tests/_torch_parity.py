@@ -134,3 +134,100 @@ def port_outputs(model, toks: np.ndarray) -> dict:
         steps.append(logits.numpy())
     tokens = ServeSession(model, MAX_SEQ, device="cpu").generate(toks, STEPS)
     return {"prefill": prefill.numpy(), "decode": steps, "tokens": tokens.numpy()}
+
+
+# ------------------------------------------------------------------ training
+
+#: the training tests' batch: B x S tokens from the reference's pipeline
+TRAIN_BATCH, TRAIN_SEQ = 2, 32
+
+
+def train_batch(m, step: int = 0, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """A batch of the reference's SyntheticLMDataset for ModelConfig m (numpy)."""
+    from repro.data import SyntheticLMDataset
+    return SyntheticLMDataset(m, seq_len=seq, global_batch=batch, seed=1).batch(step)
+
+
+def stacked(tree: dict, port: dict) -> list[tuple[str, np.ndarray, np.ndarray]]:
+    """(name, reference leaf, the port's tensors by name stacked like it) for
+    every leaf of the reference's tree (params, grads or moments), as f32."""
+    out = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [p.key for p in path]
+        leaf = np.asarray(leaf, np.float32)
+        if keys[0] == "layers":
+            got = np.stack([to_np(port[f"layers.{i}.{keys[1]}"].detach())
+                            for i in range(leaf.shape[0])])
+        else:
+            got = to_np(port[".".join(keys)].detach())
+        out.append(("/".join(keys), leaf, got))
+    return out
+
+
+def reference_loss_and_grads(arch: str, dtype: str, grads: bool = True):
+    """The reference's smoke model (jax.random.key(0)) in ``dtype``, its
+    weights as numpy, a batch, and its loss, metrics and (with ``grads``)
+    gradients from jax.value_and_grad of api.loss under the xla engine."""
+    cfg = with_dtype(j_get_config(arch, smoke=True), dtype)
+    api = j_build_model(cfg)
+    params = api.init(jax.random.key(0))
+    batch = train_batch(cfg.model)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if grads:
+        (loss, metrics), g = jax.value_and_grad(api.loss, has_aux=True)(params, jbatch)
+    else:
+        (loss, metrics), g = api.loss(params, jbatch), None
+    return jax.tree.map(np.asarray, params), batch, loss, metrics, g
+
+
+def port_train_model(arch: str, dtype: str, tree: dict, remat: str = "full",
+                     kind: str = "xla", schedule: str = "wls", **train):
+    """The port's smoke model on the CPU holding the reference's weights
+    ``tree``, with the remat policy, engine and TrainConfig fields given."""
+    cfg = with_dtype(t_get_config(arch, smoke=True), dtype)
+    cfg = dataclasses.replace(
+        cfg, parallel=dataclasses.replace(cfg.parallel, remat=remat),
+        engine=tconfig.EngineConfig(kind=kind, schedule=schedule, **BLOCKS),
+        train=dataclasses.replace(cfg.train, **train))
+    return params_from_jax(cfg, tree, device="cpu")
+
+
+#: the training tolerances: f32 loss and every gradient leaf (rel_err; the
+#: GEMM tolerance), and the bf16 loss (rel_err; the layers' bf16 tolerance)
+GRAD_TOL, BF16_LOSS_TOL = 1e-5, 2e-2
+
+
+def port_loss_and_grads(model, batch: dict):
+    """The port's Model.loss on batch and torch.autograd.grad of it with
+    respect to every parameter, by name."""
+    model.requires_grad_(True)
+    loss, metrics = model.loss(batch)
+    names, params = zip(*model.named_parameters())
+    return loss, metrics, dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def assert_loss_and_grads(arch: str) -> None:
+    """f32: the port's loss, metrics and every gradient leaf against
+    jax.value_and_grad of the reference's api.loss on its weights."""
+    tree, batch, loss, metrics, grads = reference_loss_and_grads(arch, "float32")
+    got, got_metrics, got_grads = port_loss_and_grads(
+        port_train_model(arch, "float32", tree), batch)
+    assert rel_err(got.detach(), loss) < GRAD_TOL
+    for key in ("ce", "aux_loss"):
+        assert rel_err(got_metrics[key].detach(), metrics[key]) < GRAD_TOL, key
+    assert int(got_metrics["n_valid"]) == int(metrics["n_valid"])
+    leaves = stacked(grads, got_grads)
+    assert sum(np.prod(w.shape) for _, w, _ in leaves) == sum(
+        g.numel() for g in got_grads.values())    # every parameter is compared
+    for name, want, have in leaves:
+        assert np.isfinite(have).all() and np.abs(want).max() > 0, name
+        assert rel_err(have, want) < GRAD_TOL, (name, rel_err(have, want))
+
+
+def assert_bf16_loss(arch: str) -> None:
+    """bf16: the port's loss against the reference's on the same weights."""
+    tree, batch, loss, _, _ = reference_loss_and_grads(arch, "bfloat16", grads=False)
+    with torch.no_grad():
+        got, _ = port_train_model(arch, "bfloat16", tree).loss(batch)
+    assert np.isfinite(float(got))
+    assert rel_err(got, loss) < BF16_LOSS_TOL

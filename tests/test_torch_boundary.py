@@ -43,7 +43,9 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serving, repro_torch.kernels, "
             "repro_torch.models, repro_torch.models.ssm_lm, "
-            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk\n"
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk, "
+            "repro_torch.optim, repro_torch.training, repro_torch.checkpoint, "
+            "repro_torch.data\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,

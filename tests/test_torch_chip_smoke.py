@@ -245,3 +245,19 @@ def test_decode_floor_counts_the_weights_a_step_reads(arch):
 ])
 def test_library_gemm_records(record, want):
     assert chip_smoke.is_library_gemm(record) == want
+
+
+@pytest.mark.parametrize("arch,attn_layers", [("qwen3-1.7b", 28), ("mamba2-130m", 0),
+                                              ("zamba2-2.7b", 9)])
+def test_model_flops_counts_6nt_and_attention(arch, attn_layers):
+    """Phase 10's model FLOPs: 6 N per token, plus 12 L H hd S per token
+    over the layers that attend (none for mamba2, the shared block's 9
+    applications for zamba2)."""
+    from repro_torch.configs import get_config
+    m = get_config(arch).model
+    tokens, seq = 4096, chip_smoke.TRAIN["seq_len"]
+    want = (6 * m.param_count()
+            + 12 * attn_layers * m.n_heads * m.resolved_head_dim * seq) * tokens
+    assert chip_smoke.model_flops(m, tokens) == want
+    if arch == "qwen3-1.7b":
+        assert 4.3e13 < want < 4.5e13

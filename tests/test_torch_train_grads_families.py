@@ -1,0 +1,22 @@
+"""Training parity, the MoE, VLM and audio families: the port's Model.loss
+(the MoE's auxiliary loss summed over layers, the VLM's patch positions
+labelled -100, audio's per-codebook CE) and its gradient with respect to
+every parameter against jax.value_and_grad of the reference's loss on the
+reference's smoke weights (f32: rel_err < 1e-5; bf16: the loss within
+2e-2)."""
+
+import pytest
+
+from _torch_parity import assert_bf16_loss, assert_loss_and_grads
+
+ARCHS = ["granite-moe-3b-a800m", "grok-1-314b", "qwen2-vl-72b", "musicgen-large"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_f32(arch):
+    assert_loss_and_grads(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_bf16(arch):
+    assert_bf16_loss(arch)
