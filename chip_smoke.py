@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build, check, time, serve.
+"""Drive the PyTorch port on one NVIDIA GPU: build, check, time, serve, train,
+simulate.
 
     python3 chip_smoke.py
 
@@ -110,6 +111,28 @@ Phases, each of which raises (exit code != 0) when it fails:
      the whole contraction and in pieces) and the f32-cast ones are from
      the exact (f64) product at the contractions of dot_f32's backward
      (8192 and 12288).
+ 11. the RASA simulator (src/repro_torch/core/): the paper's Table I
+     lowered with Algorithm 1's policy and run under the 8 designs through
+     the MM-only scan kernel (sweep_workload, backend "cuda", one launch)
+     and through the numpy lane, every pair's cycles, WL skips, stall
+     cycles and utilization equal, Fig. 5's normalized runtimes printed;
+     Fig. 5's FC layers and Fig. 7's batches to 256 at the golden
+     fixtures' raw cycles (tests/fixtures/), batch_sweep() to 2048 against
+     the numpy lane; the six FC layers under one core's epoch schedule on
+     a 4-core chip at ChipConfig's defaults and under its static equal
+     share, through sweep_trace and sweep_traces (packed) on the full-stream
+     kernel; run_cores over four Table I layers, each with its own schedule
+     and tail, results and last_grant equal; every kernel variant against
+     its plain version on DLRM-2 and random streams, bit for bit (the
+     plain versions on the card from worker processes, beside the numpy
+     lane's, while the main process drives the kernels); then each
+     kernel's device time on DLRM-2 x 8 designs (beside its plain version
+     and the numpy lane) and at its main-path shape, its bound (bytes over
+     the HBM rate, fp64 operations over the fp64 peak), its serial chain,
+     and the host's share (lowering, analysis, packing, upload, readback;
+     the end-to-end sweeps timed on traces whose analysis is not cached).
+     ``python3 chip_smoke.py simulate`` runs the build and this phase
+     alone, and its last line says so ("phases": ["build", "simulate"]).
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -1876,6 +1899,466 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
     return row
 
 
+# --------------------------------------------------------------- simulator
+
+SIM_FC = ("DLRM-1", "DLRM-2", "DLRM-3", "BERT-1", "BERT-2", "BERT-3")
+FIG5_LAYERS = ("DLRM-1", "DLRM-2", "BERT-1", "BERT-3")     # tests/test_golden_figures.py:36
+FIG7_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256)          # tests/test_golden_figures.py:37
+FIG7_DESIGNS = ("BASE", "RASA-DMDB-WLS")
+SIM_CORES = ("DLRM-3", "BERT-2", "ResNet50-1", "DLRM-1")   # run_cores' four lanes
+SIM_CORE_DESIGN = "RASA-DMDB-WLS"
+SIM_PLAIN_LAYER = "DLRM-2"     # 8,448 instructions: each kernel against its plain version
+# a 4-core chip at ChipConfig's defaults (src/repro/multicore/chip.py:299-305): 256
+# bytes/cycle shared, epochs of 1024 cycles, bursts of 16384 bytes, stores charged
+CHIP = dict(cores=4, bw=256.0, epoch=1024.0, burst=16384.0, stores_charged=True)
+# epochs at which the chip's other three cores stop drawing; the bucket sweep's core
+# draws on: its equal share is 64, then 85.3, then 128 bytes/cycle, then the budget
+SWEEP_DRAINS = (300, 600, 900)
+# the epochs at which run_cores' four lanes stop drawing: each lane's schedule is its
+# equal share while it draws, its tail the budget over the lanes still drawing after
+CORE_DRAINS = (1400, 450, 300, 350)
+FP64_PEAK = 34e12              # H100 SXM data sheet: fp64 outside the tensor cores
+# fp64 operations of csrc/fastsim.cu, counted from the code: per instruction (the issue
+# time's division and the branch's adds, maxima and compares; an MM by its WLS path, the
+# longest), per bucket grant beyond its walks, per walk step (the floor division, the
+# share, the epoch end, the refill)
+SCAN_OPS = {"tl": 6, "ts": 6, "mm": 15, "grant": 5, "walk": 16}
+MM_SCAN_OPS = 17               # per MM row of fastsim_mm_kernel (WLS path, a free store)
+# the dependent fp64 operations of a step's longest chain through the carry: an MM
+# under WLS (wl_start's max of three: 2, the hidden compare: 1, weights_ready: 1,
+# ff_start's max of three: 2, ff_end: 1, fs_end: 1)
+CHAIN_OPS_PER_STEP = 8
+PREDICTION_SIM = (
+    "fastsim_mm_scan over Table I x 8 designs (72 lanes; the longest, ResNet50-2, 451,584 "
+    "MM rows): 20-120 ms of device time, latency-bound (~8 dependent fp64 operations a "
+    "row, ~10 cycles each at ~1.7 GHz), far below 1% of its bound's rate; fastsim_scan "
+    "over the six FC layers packed (1,017,088 instructions a lane) x 8 designs under the "
+    "epoch bucket: 150-900 ms. sweep_workload(Table I, backend='cuda') end to end 2-6 s, "
+    "most of it the host's dataflow analysis and packing; the numpy lane 15-40 s for the "
+    "same 72 pairs; lowering Table I 15-35 s. The card idles: 72 threads on 9 of 132 SMs.")
+
+
+def sweep_schedule():
+    """(shares, tail) of the bucket sweep's core (see SWEEP_DRAINS)."""
+    return (tuple(CHIP["bw"] / (1 + sum(d > e for d in SWEEP_DRAINS))
+                  for e in range(max(SWEEP_DRAINS))), CHIP["bw"])
+
+
+def chip_schedule(drains, k: int):
+    """(shares, tail) of core k on a CHIP whose cores stop drawing on the
+    shared budget at epochs ``drains``: the equal share of the cores still
+    drawing in each epoch up to its own drain, then the budget over the
+    cores drawing after it."""
+    shares = tuple(CHIP["bw"] / sum(d > e for d in drains) for e in range(drains[k]))
+    return shares, CHIP["bw"] / max(1, sum(d > drains[k] for d in drains))
+
+
+def random_trace(core, seed: int, n: int):
+    """A compiled random stream: the reference's test stream, from the one
+    jax-free copy the tests draw it from (tests/_sim_streams.py), built
+    from the port's classes."""
+    import importlib.util
+    import random
+    from repro_torch.core.trace import compile_stream
+    spec = importlib.util.spec_from_file_location("_sim_streams",
+                                                  ROOT / "tests" / "_sim_streams.py")
+    streams = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(streams)
+    return compile_stream(streams.random_stream(random.Random(seed), n, core.isa))
+
+
+def timing_key(r) -> tuple:
+    return (r.cycles, r.wl_skips, r.bw_stall_cycles, r.n_mm, r.n_tl, r.n_ts, r.useful_macs)
+
+
+def require_equal(what: str, got, want) -> None:
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w) \
+            if len(got) == len(want) else "length"
+        raise RuntimeError(f"simulate: {what} differs from the numpy lane (first at {bad})")
+
+
+def scan_bound(traces, lanes_traces, out, charged: bool, lanes_bytes: int) -> dict:
+    """The full-stream scan's bound: its columns (12 bytes an instruction),
+    lane tables and results read or written once over the HBM rate, and the
+    fp64 operations of each lane's trace (SCAN_OPS, the walk steps this run
+    took) over the fp64 peak; beside it the serial chain."""
+    n_instr = sum(len(t) for t in traces)
+    ops = sum(SCAN_OPS["tl"] * t.n_tl + SCAN_OPS["ts"] * t.n_ts + SCAN_OPS["mm"] * t.n_mm
+              + SCAN_OPS["grant"] * (t.n_tl + (t.n_ts if charged else 0))
+              for t in lanes_traces) + SCAN_OPS["walk"] * float(out[:, 4].sum())
+    fields = bound_fields((12 * n_instr + lanes_bytes) / HBM_BYTES_PER_S * 1e3,
+                          ops / FP64_PEAK * 1e3)
+    fields["serial_chain_ops"] = CHAIN_OPS_PER_STEP * max(len(t) for t in lanes_traces)
+    fields["lane_steps"] = sum(len(t) for t in lanes_traces)
+    return fields
+
+
+def mm_bound(cols) -> dict:
+    """The MM-only scan's bound: its rows (a 4-byte code and six doubles)
+    and lane tables read once, results written once, over the HBM rate;
+    MM_SCAN_OPS per (lane, row) over the fp64 peak; beside it the chain."""
+    code, val, lane_f, lane_rows = cols
+    steps = lane_rows[:, 1] - lane_rows[:, 0]
+    nbytes = code.nbytes + val.nbytes + lane_f.nbytes + lane_rows.nbytes + 16 * len(lane_f)
+    fields = bound_fields(nbytes / HBM_BYTES_PER_S * 1e3,
+                          MM_SCAN_OPS * float(steps.sum()) / FP64_PEAK * 1e3)
+    fields["serial_chain_ops"] = CHAIN_OPS_PER_STEP * int(steps.max())
+    fields["lane_steps"] = int(steps.sum())
+    return fields
+
+
+def kernel_ms(torch, fn, name: str, reps: int) -> tuple[float, str]:
+    """Device ms of one fn() call's ``name`` kernel (its records in
+    device_ms's traces), or the call's event time where no trace held
+    every record."""
+    ms, _, timer, records = device_ms(torch, fn, reps)
+    if timer == "profiler":
+        ms = sum(v for k, v in records.items() if name in k)
+    return ms, timer
+
+
+def timed_row(ms: float, timer: str, bound: dict) -> dict:
+    return {"ms": ms, "timer": timer, **bound,
+            "lane_steps_per_s": bound["lane_steps"] / (ms / 1e3),
+            "ns_per_chain_op": ms * 1e6 / bound["serial_chain_ops"]}
+
+
+#: what ``python3 chip_smoke.py simulate`` runs (its last line names them)
+PARTIAL_PHASES = ("build", "simulate")
+SIM_WORKERS = 6                # processes of the numpy lane (the card's host has 8 cores)
+
+
+def sim_worker_init(src: str) -> None:
+    sys.path.insert(0, src)
+
+
+def sim_numpy(specs, designs, params=None, cores: bool = False):
+    """The numpy lane on a worker process: lower ``specs`` (ALG1) and run
+    every (spec, design) pair under ``params`` (None: the port model), or
+    with ``cores`` the specs as the lanes of run_cores (one design, a
+    params per lane).  Returns the results' timing keys (run_cores': with
+    last_grant), the lowering's and the lane's seconds."""
+    from repro_torch.core import DESIGNS, fastsim
+    from repro_torch.core.tiling import ALG1_POLICY
+    from repro_torch.core.trace import gemm_trace
+    t0 = time.perf_counter()
+    traces = [gemm_trace(s, ALG1_POLICY) for s in specs]
+    t1 = time.perf_counter()
+    cfgs = [DESIGNS[d] for d in designs]
+    if cores:
+        out = [timing_key(r) + (lg,) for r, lg in
+               fastsim.run_cores(traces, cfgs[0], params, backend="numpy")]
+    else:
+        out = [[timing_key(r) for r in fastsim.sweep_trace(t, cfgs, params, backend="numpy")]
+               for t in traces]
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+def sim_plain(cols, bucket: bool | None = None, n_seg: int = 0):
+    """A kernel's plain version on the card, on a worker process: ``cols``
+    the kernel's inputs as numpy (the MM-only scan's when ``bucket`` is
+    None).  Returns its outputs as numpy and its ms (host clock,
+    synchronised)."""
+    import torch
+    from repro_torch.kernels import fastsim_scan as fsk
+    args = tuple(torch.as_tensor(c, device=DEV) for c in cols)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if bucket is None:
+        out, seg = fsk.fastsim_mm_scan_plain(*args), None
+    else:
+        out, seg = fsk.fastsim_scan_plain(*args, bucket=bucket, n_seg=n_seg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out.cpu().numpy(), (seg.cpu().numpy() if n_seg else None), ms
+
+
+def simulate_phase(torch, card: str) -> list[dict]:
+    """Phase 11: the RASA simulator on the card.  Table I x the 8 designs
+    through the MM-only kernel (sweep_workload, backend "cuda") against the
+    numpy lane, every pair's cycles, wl_skips, stall cycles and utilization
+    equal; the golden fixtures (Fig. 5's FC layers, Fig. 7 to batch 256) at
+    their raw cycles, and batch_sweep() to 2048 against the numpy lane; the
+    six FC layers under a 4-core chip's epoch schedule and its static equal
+    share, through sweep_trace and sweep_traces (the packed layout); four
+    layers as the lanes of run_cores, each with its own schedule and tail,
+    results and last_grant equal.  Every kernel variant against its plain
+    version on DLRM-2 and on random streams.  The plain versions (on the
+    card) and the numpy lane (each task lowering its own specs) run on
+    SIM_WORKERS processes meanwhile.  Then each kernel's device time on
+    DLRM-2 and at its main-path shape beside its bound, the plain
+    version's time and the numpy lane's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from repro_torch import core
+    from repro_torch.core import fastsim, simulator
+    from repro_torch.core.tiling import ALG1_POLICY
+    from repro_torch.core.trace import gemm_trace
+    from repro_torch.kernels import fastsim_scan as fsk
+    print("prediction (written before the first run of phase 11): " + PREDICTION_SIM)
+    fixtures = ROOT / "tests" / "fixtures"
+    fig5 = json.loads((fixtures / "fig5_runtime.json").read_text())
+    fig7 = json.loads((fixtures / "fig7_batch.json").read_text())
+    cfgs = list(core.DESIGNS.values())
+    names = list(core.DESIGNS)
+    report: dict = {"host_s": {}}
+    host = report["host_s"]
+
+    def clock(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host[key] = time.perf_counter() - t0
+        return out
+
+    def uncached(fn):
+        """fn on traces whose dataflow analysis is not cached, as a first
+        sweep_workload call meets them: an end-to-end time counts the
+        analysis (the lowering, cached, is timed on its own)."""
+        def run():
+            if fastsim._MM_CACHE is not None:
+                fastsim._MM_CACHE.clear()
+            return fn()
+        return run
+
+    table = list(core.TABLE_I.values())
+    full7 = list(core.batch_sweep().values())
+    shares, tail = sweep_schedule()
+    models = {"epoch": fastsim.StreamModelParams(2, 1, shares, CHIP["epoch"], tail,
+                                                 CHIP["burst"], CHIP["stores_charged"]),
+              "static": fastsim.StreamModelParams(2, 1, (), math.inf, CHIP["bw"] / CHIP["cores"],
+                                                  CHIP["burst"], CHIP["stores_charged"])}
+    cparams = [fastsim.StreamModelParams(2, 1, shares_k, CHIP["epoch"], tail_k, CHIP["burst"],
+                                         CHIP["stores_charged"])
+               for shares_k, tail_k in (chip_schedule(CORE_DRAINS, k)
+                                        for k in range(len(SIM_CORES)))]
+    pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
+    with pool:
+        t_pool = time.perf_counter()
+        # 5 (submitted first, checked below). Every kernel variant on DLRM-2
+        # and on random streams: its plain version on the card, on a worker
+        small = gemm_trace(core.TABLE_I[SIM_PLAIN_LAYER], ALG1_POLICY)
+        rand = [random_trace(core, s, 300) for s in range(3)]
+        p_port = fastsim.StreamModelParams(2, 1)
+        ccfg = core.DESIGNS[SIM_CORE_DESIGN]
+        variants = (  # (name, traces, lanes (trace index, design, params), n_seg)
+            ("sweep bucket (epoch), DLRM-2", [small],
+             [(0, c, models["epoch"]) for c in cfgs], 0),
+            ("packed bucket (static), DLRM-2 + random",
+             [fastsim._pack_lane([small, rand[0]])[0]],
+             [(0, c, models["static"]) for c in cfgs], 2),
+            ("sweep port, DLRM-2", [small], [(0, c, p_port) for c in cfgs], 0),
+            ("packed port, random + DLRM-2", [fastsim._pack_lane([rand[1], small])[0]],
+             [(0, c, p_port) for c in cfgs], 2),
+            ("cores bucket (epoch), random", rand,
+             [(k, ccfg, cparams[k]) for k in range(len(rand))], 0),
+            ("sweep bucket (epoch), random", rand[:1],
+             [(0, c, models["epoch"]) for c in cfgs], 0),
+            ("packed bucket (epoch), random", [fastsim._pack_lane(rand)[0]],
+             [(0, c, models["epoch"]) for c in cfgs], 3))
+        checks = []
+        for what, trs, lns, n_seg in variants:
+            args, bucket = fastsim.scan_inputs(trs, lns, "cpu")
+            cols = tuple(a.numpy() for a in args)
+            checks.append(("scan", what, cols, bucket, n_seg,
+                           pool.submit(sim_plain, cols, bucket, n_seg)))
+        for what, trs in (("MM-only, DLRM-2", [small]), ("MM-only, random", rand)):
+            cols = fastsim.mm_scan_inputs(trs, cfgs, None)[0]
+            checks.append(("mm_scan", what, cols, None, 0, pool.submit(sim_plain, cols)))
+        oracle = {  # the numpy lane, on the workers, while the card runs below
+            "table_i": [pool.submit(sim_numpy, [s], names) for s in table],
+            "batch_sweep": [pool.submit(sim_numpy, [s], FIG7_DESIGNS) for s in full7],
+            **{f"fc_{m}": [pool.submit(sim_numpy, [core.TABLE_I[k]], names, p) for k in SIM_FC]
+               for m, p in models.items()},
+            "cores": [pool.submit(sim_numpy, [core.TABLE_I[k] for k in SIM_CORES],
+                                  [SIM_CORE_DESIGN], cparams, True)]}
+        traces = clock("lower_table_i",
+                       lambda: {s.name: gemm_trace(s, ALG1_POLICY) for s in table})
+        clock("lower_batch_sweep", lambda: [gemm_trace(s, ALG1_POLICY) for s in full7])
+        report["table_i_instructions"] = {k: len(t) for k, t in traces.items()}
+
+        fsk.reset_launches()        # ---- the main path: counts from 0 ----
+        # 1. Table I x 8 designs: the MM-only kernel, one launch
+        table_cuda = clock("table_i_cuda", uncached(
+            lambda: simulator.sweep_workload(table, backend="cuda")))
+        # 2. the golden fixtures at their raw cycles, then the batch sweep to 2048
+        rows = simulator.sweep_workload([core.TABLE_I[k] for k in FIG5_LAYERS], backend="cuda")
+        for layer, r in zip(FIG5_LAYERS, rows):
+            for n in names:
+                want_f = fig5[f"{layer}/{n}"]
+                if (r[n].cycles, r[n].cycles / r["BASE"].cycles) != (want_f["cycles"],
+                                                                      want_f["normalized"]):
+                    raise RuntimeError(f"simulate: Fig. 5 {layer}/{n} {r[n].cycles} against "
+                                       f"the fixture's {want_f['cycles']}")
+        rows = simulator.sweep_workload(list(core.batch_sweep(batches=FIG7_BATCHES).values()),
+                                        designs=list(FIG7_DESIGNS), backend="cuda")
+        for b, r in zip(FIG7_BATCHES, rows):
+            dm = r["RASA-DMDB-WLS"].cycles
+            if (dm, dm / r["BASE"].cycles) != (fig7[str(b)]["cycles"],
+                                               fig7[str(b)]["normalized"]):
+                raise RuntimeError(f"simulate: Fig. 7 batch {b}: {dm} against the fixture's "
+                                   f"{fig7[str(b)]['cycles']}")
+        batch_cuda = clock("batch_sweep_cuda", uncached(lambda: simulator.sweep_workload(
+            full7, designs=list(FIG7_DESIGNS), backend="cuda")))
+        # 3. the six FC layers under the chip's epoch schedule and its static share
+        fc = [traces[k] for k in SIM_FC]
+        fc_cuda = {}
+        for model, p in models.items():
+            fc_cuda[model] = (
+                clock(f"fc_{model}_cuda_sweep", lambda: [
+                    [timing_key(r) for r in fastsim.sweep_trace(t, cfgs, p, backend="cuda")]
+                    for t in fc]),
+                clock(f"fc_{model}_cuda_packed", lambda: [
+                    [timing_key(r) for r in row]
+                    for row in fastsim.sweep_traces(fc, cfgs, p, backend="cuda")]))
+        # 4. run_cores: four lanes, each its own schedule and tail
+        lanes = [traces[k] for k in SIM_CORES]
+        cores_cuda = clock("cores_cuda",
+                           lambda: fastsim.run_cores(lanes, ccfg, cparams, backend="cuda"))
+        main_launches = dict(fsk.launches)  # ---- the main path ends ----
+        # the analysis alone: the share of table_i_cuda the host's dataflow takes
+        clock("analysis_table_i", uncached(
+            lambda: [fastsim._mm_analysis(t) for t in traces.values()]))
+
+        # 5. each kernel variant on the card against its plain version's outputs
+        dev = torch.device(DEV)
+        plain_ms: dict = {}
+        worst = {"scan": 0.0, "mm_scan": 0.0}
+        for key, what, cols, bucket, n_seg, future in checks:
+            args = tuple(torch.as_tensor(c, device=dev) for c in cols)
+            if key == "scan":
+                out_k, seg_k = fsk.fastsim_scan_cuda(*args, bucket=bucket, n_seg=n_seg)
+            else:
+                out_k, seg_k = fsk.fastsim_mm_scan_cuda(*args), None
+            out_p, seg_p, plain_ms[what] = future.result()
+            err = float(np.abs(out_k.cpu().numpy() - out_p).max())
+            if n_seg:
+                err = max(err, float(np.abs(seg_k.cpu().numpy() - seg_p).max()))
+            worst[key] = max(worst[key], err)
+            if err:
+                raise RuntimeError(f"simulate: {key} {what} differs from its plain version "
+                                   f"by {err}")
+        print("simulate: each kernel variant equal to its plain version (plain versions on "
+              "the card, on worker processes); plain ms " + json.dumps(plain_ms))
+
+        # the numpy lane's results: the main path's comparisons
+        numpy = {key: [f.result() for f in futs] for key, futs in oracle.items()}
+        host["numpy_pool_wall"] = time.perf_counter() - t_pool
+    for key, res in numpy.items():
+        host[f"{key}_numpy_lowering"] = sum(r[1] for r in res)
+        host[f"{key}_numpy"] = sum(r[2] for r in res)
+    # a SimReport's fields of timing_key; utilization from the numpy lane's
+    # cycles and useful MACs, as TimingResult.utilization computes it
+    keys = ("cycles", "wl_skips", "bw_stall_cycles", "n_mm", "n_tl", "n_ts")
+    require_equal("Table I x 8", [[tuple(getattr(r[n], k) for k in keys) + (r[n].utilization,)
+                                   for n in names] for r in table_cuda],
+                  [[k[:6] + (k[6] / (k[0] * c.peak_macs_per_cycle),) for k, c in zip(r[0][0], cfgs)]
+                   for r in numpy["table_i"]])
+    require_equal("batch_sweep() to 2048",
+                  [[tuple(getattr(r[n], k) for k in keys) for n in FIG7_DESIGNS]
+                   for r in batch_cuda], [[k[:6] for k in r[0][0]] for r in numpy["batch_sweep"]])
+    for model in models:
+        want = [r[0][0] for r in numpy[f"fc_{model}"]]
+        require_equal(f"sweep_trace, six FC layers, {model}", fc_cuda[model][0], want)
+        require_equal(f"sweep_traces (packed), six FC layers, {model}", fc_cuda[model][1], want)
+    require_equal("run_cores, 4 lanes", [timing_key(r) + (lg,) for r, lg in cores_cuda],
+                  numpy["cores"][0][0])
+    print(f"simulate: main path equal to the numpy lane; launches {main_launches}")
+    print("simulate: Fig. 5 normalized runtime (Table I, cuda = numpy): " + json.dumps(
+        {s.name: {n: r[n].cycles / r["BASE"].cycles for n in names}
+         for s, r in zip(table, table_cuda)}))
+    report["fig7_to_2048"] = {s.name: r["RASA-DMDB-WLS"].cycles / r["BASE"].cycles
+                              for s, r in zip(full7, batch_cuda)}
+    report["cores"] = {k: {"cycles": r.cycles, "bw_stall_cycles": r.bw_stall_cycles,
+                           "last_grant": lg} for k, (r, lg) in zip(SIM_CORES, cores_cuda)}
+
+    # 6. times: each kernel on DLRM-2 (beside its plain version) and at the main path
+    lanes_e = [(0, c, models["epoch"]) for c in cfgs]
+    lane_bytes = len(lanes_e) * (len(fsk.LANE_FIELDS) + 4 + 5) * 8
+
+    def scan(a, n_seg=0):
+        return fsk.fastsim_scan_cuda(*a, bucket=True, n_seg=n_seg)
+
+    def mm(a):
+        return fsk.fastsim_mm_scan_cuda(*a)
+
+    def upload(cols):
+        return tuple(torch.as_tensor(c, device=dev) for c in cols)
+
+    def main_ms(fn) -> tuple[float, str]:
+        """A main-path kernel runs for a good part of a second: CUDA events
+        around one call (after a warm-up) time it."""
+        fn()
+        torch.cuda.synchronize()
+        return event_ms(torch, fn, 1), "events"
+
+    args, _ = fastsim.scan_inputs([small], lanes_e, dev)
+    out, _ = scan(args)
+    clock("dlrm2_epoch_numpy",
+          lambda: fastsim.sweep_trace(small, cfgs, models["epoch"], backend="numpy"))
+    rows = {"scan": timed_row(
+        *kernel_ms(torch, lambda: scan(args), fsk.KERNEL_NAMES["scan"], 3),
+        scan_bound([small], [small] * len(lanes_e), out.cpu().numpy(), True, lane_bytes))}
+    rows["scan"].update(plain_ms=plain_ms["sweep bucket (epoch), DLRM-2"],
+                        numpy_ms=host["dlrm2_epoch_numpy"] * 1e3)
+    # the same lanes under the port model (stores on their port): the
+    # bucket's share of the time
+    pargs, _ = fastsim.scan_inputs([small], [(0, c, p_port) for c in cfgs], dev)
+    rows["scan"]["ms_port_model"] = kernel_ms(
+        torch, lambda: fsk.fastsim_scan_cuda(*pargs, bucket=False),
+        fsk.KERNEL_NAMES["scan"], 3)[0]
+    packed = fastsim._pack_lane(fc)[0]
+    args, _ = clock("pack_fc_epoch", lambda: fastsim.scan_inputs([packed], lanes_e, dev))
+    out, _ = scan(args, len(fc))
+    main = timed_row(*main_ms(lambda: scan(args, len(fc))),
+                     scan_bound([packed], [packed] * len(lanes_e), out.cpu().numpy(), True,
+                                lane_bytes))
+    main["numpy_ms"] = host["fc_epoch_numpy"] * 1e3
+    rows["scan"]["main_path"] = main
+
+    cols, _, _ = fastsim.mm_scan_inputs([small], cfgs, None)
+    margs = upload(cols)
+    clock("dlrm2_port_numpy", lambda: fastsim.sweep_trace(small, cfgs, None, backend="numpy"))
+    rows["mm_scan"] = timed_row(
+        *kernel_ms(torch, lambda: mm(margs), fsk.KERNEL_NAMES["mm_scan"], 3), mm_bound(cols))
+    rows["mm_scan"].update(plain_ms=plain_ms["MM-only, DLRM-2"],
+                           numpy_ms=host["dlrm2_port_numpy"] * 1e3)
+    cols, _, _ = clock("pack_table_i",
+                       lambda: fastsim.mm_scan_inputs(list(traces.values()), cfgs, None))
+    margs = clock("upload_table_i", lambda: upload(cols))
+    main = timed_row(*main_ms(lambda: mm(margs)), mm_bound(cols))
+    out = mm(margs)
+    torch.cuda.synchronize()
+    clock("readback_table_i", lambda: out.cpu())
+    main["numpy_ms"] = host["table_i_numpy"] * 1e3
+    rows["mm_scan"]["main_path"] = main
+    report["kernels"] = rows
+    print(f"simulate: {json.dumps(report)} | {card}")
+    works = {"scan": "DLRM-2 (8,448 instructions) x 8 designs, the chip's epoch schedule "
+                     "(sweep layout, one launch); main_path: the six FC layers packed "
+                     "(1,017,094 instructions a lane) x 8 designs, the same schedule",
+             "mm_scan": "DLRM-2's 4,096 MM rows x 8 designs (one launch); main_path: Table "
+                        "I x 8 designs, 72 lanes (one launch)"}
+    replaces = {"scan": "src/repro/core/fastsim.py:813 (_sim_chunk_fn)",
+                "mm_scan": "src/repro/core/fastsim.py:1346 (_jax_mm_fn)"}
+    return [{"name": fsk.KERNEL_NAMES[key], "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/fastsim.cu", "replaces": replaces[key],
+             "launches": main_launches[key], "max_abs_err": worst[key],
+             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": None,
+             "library_note": "none: no PyTorch call computes the scan",
+             "numpy_ms": row["numpy_ms"], "timer": row["timer"],
+             "serial_chain_ops": row["serial_chain_ops"],
+             "ns_per_chain_op": row["ns_per_chain_op"],
+             "lane_steps_per_s": row["lane_steps_per_s"], "main_path": row["main_path"],
+             **({"ms_port_model": row["ms_port_model"]} if "ms_port_model" in row else {}),
+             "work": works[key]} for key, row in rows.items()]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -1908,12 +2391,16 @@ def main() -> int:
         print("\n".join(line for line in report.splitlines()
                         if "registers" in line or "spill" in line or "entry" in line))
 
+    phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
+    if sys.argv[1:] == ["simulate"]:          # the build and phase 11 alone
+        phase("simulate")
+        kernels = simulate_phase(torch, card)
+        return finish(torch, t_start, kernels, card, kind, phases=PARTIAL_PHASES)
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
     print("prediction (written before the first run of phases 8 and 9): " + PREDICTION_FAMILIES)
     print("prediction (written before the first run of phase 10): " + PREDICTION_TRAIN)
-    phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
     phase("check")
     worst = check_gemm(torch, rk, (qwen, mamba, zamba, *map(get_config, FAMILY_ARCHS),
                                    *map(get_config, REDUCED)))
@@ -1955,6 +2442,8 @@ def main() -> int:
         phase(f"train {arch}")
         trained[arch] = train(torch, rk, arch, card, rasa=arch == TRAIN_RASA)
     print("train: " + json.dumps(trained))
+    phase("simulate")
+    simulated = simulate_phase(torch, card)
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
@@ -2021,12 +2510,28 @@ def main() -> int:
         "f32_library_kernels": flash32["library_kernels"],
         "f32_work": "ms etc.: phase 4's f32 row at the qwen3-1.7b prefill layer's shape "
                     "(the SIMT kernel); launches: phase 6's 28 layers cast to f32"})
+    return finish(torch, t_start, kernels + simulated, card, kind)
+
+
+def finish(torch, t_start: float, kernels: list, card: str, kind: str,
+           phases: tuple | None = None) -> int:
+    """The last three lines: the kernels' summary, the card, the result.
+    A partial run names the phases it ran in both JSON lines."""
+    partial = {} if phases is None else {"phases": list(phases)}
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, **partial}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps(result_line(kind, torch.cuda.device_count(), phases)))
     return 0
+
+
+def result_line(kind: str, count: int, phases: tuple | None = None) -> dict:
+    """The last line: a full run's result, or a partial run's with the
+    phases it ran (and none of the others)."""
+    line = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
+    if phases is not None:
+        line["phases"] = list(phases)
+    return line
 
 
 if __name__ == "__main__":

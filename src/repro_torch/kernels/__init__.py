@@ -9,6 +9,10 @@
 - :mod:`repro_torch.kernels.ssd_chunk` -- the fused Mamba2 SSD scan (CUDA,
   ``csrc/ssd_chunk.cu``), its entry point ``ssd_chunk_fused``, plain
   version, launch count and cost model ``hbm_bytes_fused``
+- :mod:`repro_torch.kernels.fastsim_scan` -- the RASA simulator's two
+  scans (CUDA, ``csrc/fastsim.cu``): the full-stream scan and the MM-only
+  scan, their wrappers, plain versions and launch counts (used by
+  :mod:`repro_torch.core.fastsim`)
 - :mod:`repro_torch.kernels.ops` -- device dispatch (``rasa_matmul``,
   ``flash_mha``)
 - :mod:`repro_torch.kernels.ref` -- plain-torch oracles

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>-<hash>.so`` under
 the repository root (``nvcc`` for ``sm_90a``, plain C interface), where the
-hash covers the source and the flags, so an edited source is rebuilt.  A
+hash covers the source and its flags, so an edited source is rebuilt.  A
 failed build raises; there is no fallback.
 """
 
@@ -21,7 +21,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("rasa_gemm", "flash_attention", "ssd_chunk")
+SOURCES = ("rasa_gemm", "flash_attention", "ssd_chunk", "fastsim")
+#: flags a source adds to NVCC_FLAGS: the simulator's scan rounds every
+#: product before the sum it feeds, as the numpy lane it must equal does
+#: (no fused multiply-add)
+SOURCE_FLAGS = {"fastsim": ["-fmad=false"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per fresh build
@@ -39,9 +43,13 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -54,7 +62,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

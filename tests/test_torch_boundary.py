@@ -45,7 +45,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.models, repro_torch.models.ssm_lm, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk, "
             "repro_torch.optim, repro_torch.training, repro_torch.checkpoint, "
-            "repro_torch.data\n"
+            "repro_torch.data, repro_torch.core, repro_torch.multicore, "
+            "repro_torch.kernels.fastsim_scan\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -261,3 +261,73 @@ def test_model_flops_counts_6nt_and_attention(arch, attn_layers):
     assert chip_smoke.model_flops(m, tokens) == want
     if arch == "qwen3-1.7b":
         assert 4.3e13 < want < 4.5e13
+
+
+def test_sweep_schedule_is_core_zero_of_the_chip():
+    """The bucket sweep's core: 64 bytes/cycle while all four cores draw,
+    then 85.3 and 128 as the others stop (epochs 300, 600, 900), then the
+    whole budget."""
+    shares, tail = chip_smoke.sweep_schedule()
+    assert len(shares) == max(chip_smoke.SWEEP_DRAINS) and tail == chip_smoke.CHIP["bw"]
+    assert (shares[0], shares[299], shares[300], shares[600], shares[899]) == \
+        (64.0, 64.0, 256.0 / 3, 128.0, 128.0)
+
+
+def test_chip_schedule_gives_each_lane_its_share_and_tail():
+    drains = chip_smoke.CORE_DRAINS
+    for k, d in enumerate(drains):
+        shares, tail = chip_smoke.chip_schedule(drains, k)
+        assert len(shares) == d
+        assert shares[0] == chip_smoke.CHIP["bw"] / len(drains)
+        assert tail == chip_smoke.CHIP["bw"] / max(1, sum(x > d for x in drains))
+    # the longest lane draws alone at its end, and its tail is the budget
+    k = drains.index(max(drains))
+    shares, tail = chip_smoke.chip_schedule(drains, k)
+    assert shares[-1] == tail == chip_smoke.CHIP["bw"]
+
+
+def test_require_equal_names_the_first_difference():
+    chip_smoke.require_equal("same", [(1.0, 2)], [(1.0, 2)])
+    with pytest.raises(RuntimeError, match="first at 1"):
+        chip_smoke.require_equal("x", [1, 2, 3], [1, 5, 3])
+    with pytest.raises(RuntimeError, match="length"):
+        chip_smoke.require_equal("x", [1], [1, 2])
+
+
+def test_mm_bound_counts_rows_and_the_longest_lane():
+    import numpy as np
+    code = np.zeros(10, np.int32)
+    val = np.zeros((10, 6))
+    lane_f = np.zeros((3, 6))
+    rows = np.array([[0, 10], [0, 10], [0, 4]], np.int64)
+    b = chip_smoke.mm_bound((code, val, lane_f, rows))
+    assert b["lane_steps"] == 24
+    assert b["serial_chain_ops"] == chip_smoke.CHAIN_OPS_PER_STEP * 10
+    want_bytes = (40 + 480 + 144 + 48 + 48) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert b["bytes_ms"] == pytest.approx(want_bytes)
+    assert b["operations_ms"] == pytest.approx(
+        chip_smoke.MM_SCAN_OPS * 24 / chip_smoke.FP64_PEAK * 1e3)
+    assert b["bound_ms"] == max(b["bytes_ms"], b["operations_ms"])
+
+
+def test_random_trace_is_the_tests_stream():
+    """chip_smoke's random streams are the parity tests' own (one copy,
+    tests/_sim_streams.py), compiled from the port's classes."""
+    import random
+
+    import numpy as np
+    from _sim_streams import random_stream
+    from repro_torch import core
+    from repro_torch.core.trace import compile_stream
+    got = chip_smoke.random_trace(core, 3, 50)
+    want = compile_stream(random_stream(random.Random(3), 50, core.isa))
+    assert len(got) == 58
+    for field in ("opcode", "r_dst", "r_a", "r_b", "tm", "nbytes", "reusable"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_partial_run_names_its_phases_in_the_last_line():
+    full = chip_smoke.result_line("H100", 1)
+    assert full == {"ok": True, "device": {"platform": "gpu", "kind": "H100", "count": 1}}
+    part = chip_smoke.result_line("H100", 1, chip_smoke.PARTIAL_PHASES)
+    assert part == {**full, "phases": ["build", "simulate"]}

@@ -1,0 +1,164 @@
+"""The simulator's CUDA scan kernels against the port's numpy lane and
+their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test decides inside itself whether a CUDA device is
+present and skips without one.  This file imports no jax and nothing of
+the JAX package, so it also runs on a GPU host that has neither:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_sim.py
+"""
+
+import math
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from _sim_streams import random_stream
+from repro_torch.core import DESIGNS, TABLE_I, GemmSpec, isa
+from repro_torch.core import fastsim
+from repro_torch.core import simulator as sim
+from repro_torch.core.trace import compile_stream
+from repro_torch.kernels import fastsim_scan as fsk
+
+pytestmark = pytest.mark.cuda
+NAMES = sorted(DESIGNS)
+CFGS = [DESIGNS[n] for n in NAMES]
+P = fastsim.StreamModelParams
+PARAMS = {"port_stores": P(2, 1),
+          "epoch": P(2, 1, (8.0, 16.0, 48.0), 256.0, 64.0, 2048.0, True),
+          "static": P(2, 1, (), math.inf, 12.0, 1024.0, True)}
+
+
+def need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def traces(seeds, n=300):
+    return [compile_stream(random_stream(random.Random(s), n, isa)) for s in seeds]
+
+
+def key(res, last_grant=None):
+    k = (res.cycles, res.n_mm, res.n_tl, res.n_ts, res.wl_skips, res.useful_macs,
+         res.bw_stall_cycles)
+    return k if last_grant is None else k + (last_grant,)
+
+
+@pytest.mark.parametrize("model", list(PARAMS))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scan_sweep_layout(seed, model):
+    need_cuda()
+    (tr,) = traces([seed])
+    p = PARAMS[model]
+    want = [fastsim._run_numpy_params(tr, c, p)[0] for c in CFGS]
+    before = fsk.launches["scan"]
+    got = fastsim.sweep_trace(tr, CFGS, p, backend="cuda")
+    assert fsk.launches["scan"] == before + 1
+    assert [key(g) for g in got] == [key(w) for w in want]
+    lanes = [(0, c, p) for c in CFGS]
+    kernel, _ = fastsim._scan([tr], lanes, "cuda", "cuda")
+    plain, _ = fastsim._scan([tr], lanes, "torch", "cuda")
+    np.testing.assert_array_equal(kernel, plain)
+
+
+@pytest.mark.parametrize("model", list(PARAMS))
+def test_scan_cores_layout(model):
+    need_cuda()
+    trs = traces([3, 4, 5, 6]) + traces([7], n=50)
+    base = PARAMS[model]
+    params = [P(2, 1, tuple(s * (k + 1) for s in base.shares), base.epoch_cycles,
+                base.tail_share if math.isinf(base.tail_share) else base.tail_share + k,
+                base.burst_bytes, base.charge_store_bytes) for k in range(len(trs))]
+    cfg = DESIGNS["RASA-DMDB-WLS"]
+    want = [fastsim._run_numpy_params(t, cfg, p) for t, p in zip(trs, params)]
+    got = fastsim.run_cores(trs, cfg, params, backend="cuda")
+    assert [key(r, lg) for r, lg in got] == [key(r, lg) for r, lg in want]
+    lanes = [(k, cfg, p) for k, p in enumerate(params)]
+    kernel, _ = fastsim._scan(trs, lanes, "cuda", "cuda")
+    plain, _ = fastsim._scan(trs, lanes, "torch", "cuda")
+    np.testing.assert_array_equal(kernel, plain)
+
+
+@pytest.mark.parametrize("model", list(PARAMS))
+def test_scan_packed_layout(model):
+    need_cuda()
+    trs = traces([8, 9, 10], n=200)
+    p = PARAMS[model]
+    want = [[fastsim._run_numpy_params(t, c, p)[0] for c in CFGS] for t in trs]
+    got = fastsim.sweep_traces(trs, CFGS, p, backend="cuda")
+    assert [[key(g) for g in row] for row in got] == [[key(w) for w in row] for row in want]
+    packed, _, _ = fastsim._pack_lane(trs)
+    lanes = [(0, c, p) for c in CFGS]
+    _, kernel = fastsim._scan([packed], lanes, "cuda", "cuda", n_seg=3)
+    _, plain = fastsim._scan([packed], lanes, "torch", "cuda", n_seg=3)
+    np.testing.assert_array_equal(kernel, plain)
+
+
+def test_mm_scan_gemms_and_random_streams():
+    need_cuda()
+    specs = [GemmSpec("small", 128, 256, 256), TABLE_I["DLRM-2"], GemmSpec("odd", 200, 96, 150)]
+    want = sim.sweep_workload(specs, backend="numpy")
+    before = fsk.launches["mm_scan"]
+    got = sim.sweep_workload(specs, backend="cuda")
+    assert fsk.launches["mm_scan"] == before + 1          # every (trace, design) lane at once
+    assert got == want
+    trs = traces([11, 12])
+    want = [[fastsim._run_numpy_params(t, c, P.for_config(c))[0] for c in CFGS] for t in trs]
+    got = fastsim.sweep_traces(trs, CFGS, backend="cuda")
+    assert [[key(g) for g in row] for row in got] == [[key(w) for w in row] for row in want]
+
+
+def test_mm_scan_kernel_equals_plain():
+    need_cuda()
+    trs = traces([13, 14, 15])
+    calls = {}
+    real = fsk.fastsim_mm_scan
+
+    def spy(*args, **kw):
+        calls["args"] = args
+        return real(*args, **kw)
+
+    fsk.fastsim_mm_scan = spy
+    try:
+        fastsim.sweep_traces(trs, CFGS, backend="cuda")
+    finally:
+        fsk.fastsim_mm_scan = real
+    args = calls["args"]
+    np.testing.assert_array_equal(fsk.fastsim_mm_scan_cuda(*args).cpu(),
+                                  fsk.fastsim_mm_scan_plain(*args).cpu())
+
+
+def test_unreachable_grant_raises_on_the_card():
+    need_cuda()
+    (tr,) = traces([2], n=60)
+    p = P(2, 1, (8.0,), 64.0, 1.0, 512.0, True)
+    object.__setattr__(p, "tail_share", 0.0)
+    with pytest.raises(RuntimeError, match="can never be granted"):
+        fastsim._run_numpy_params(tr, DESIGNS["RASA-WLBP"], p)
+    with pytest.raises(RuntimeError, match="can never be granted"):
+        fastsim.sweep_trace(tr, CFGS[:2], p, backend="cuda")
+
+
+def test_wrappers_refuse_bad_inputs():
+    need_cuda()
+    dev = torch.device("cuda")
+    lane_f = torch.zeros((1, len(fsk.LANE_FIELDS)), dtype=torch.float64, device=dev)
+    lane_f[0, 3] = 16.0
+    shares = torch.zeros(1, dtype=torch.float64, device=dev)
+    val = torch.zeros(2, dtype=torch.float64, device=dev)
+    bad_reg = torch.tensor([fsk.OP_TL | 9 << 4, fsk.OP_MM], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="register ids"):
+        fsk.fastsim_scan_cuda(bad_reg, val, lane_f, torch.tensor([[0, 2, 0, 0]], device=dev),
+                              shares, bucket=False)
+    ends = torch.tensor([fsk.OP_END, fsk.OP_END], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="OP_END"):
+        fsk.fastsim_scan_cuda(ends, val, lane_f, torch.tensor([[0, 2, 0, 0]], device=dev),
+                              shares, bucket=False, n_seg=1)
+    with pytest.raises(ValueError, match="outside"):
+        fsk.fastsim_scan_cuda(ends, val, lane_f, torch.tensor([[0, 3, 0, 0]], device=dev),
+                              shares, bucket=False, n_seg=2)
+    with pytest.raises(TypeError):
+        fsk.fastsim_scan_cuda(ends.long(), val, lane_f,
+                              torch.tensor([[0, 2, 0, 0]], device=dev), shares, bucket=False)
