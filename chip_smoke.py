@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build, check, time, serve, train,
-simulate.
+simulate, batch.
 
     python3 chip_smoke.py
 
@@ -132,7 +132,30 @@ Phases, each of which raises (exit code != 0) when it fails:
      and the host's share (lowering, analysis, packing, upload, readback;
      the end-to-end sweeps timed on traces whose analysis is not cached).
      ``python3 chip_smoke.py simulate`` runs the build and this phase
-     alone, and its last line says so ("phases": ["build", "simulate"]).
+     alone, and its last line says so ("phases": ["build", "simulate"]);
+ 12. the serving batcher (src/repro_torch/serving/simbatch.py over the
+     multicore chip model) on a 4-core RASA-WLBP chip at 32 B/cycle, epochs
+     of 1024 cycles: the whole-trace arbitration kernel (csrc/jitarb.cu,
+     through run_batcher on a "cuda" chip) under fixed@1, occupancy,
+     bandwidth and predicted, with demand shares and on a mixed chip (BASE,
+     RASA-WLBP, RASA-DMDB-WLS, RASA-WLBP), 200 TRACE_KW requests each
+     against the port's numpy client and, on the inputs the main path
+     gave the kernel, against its plain version (finish and admit epochs
+     and the program's counters bit for bit; the plain versions on the
+     host's CPU, on worker processes at the lowest priority); qwen3-1.7b at full width (1 of 28 layers, ~0.65 M
+     instructions a request), 4 and 8 requests, through the kernel, the
+     incremental client on "cuda" (occupancy through _Batcher, and
+     phase_aware, which the program does not take) and, at 4, the numpy
+     client: reports equal where the policy is the same, host-clock
+     lowering, planning and settle apart; 2,000 TRACE_KW requests, cold
+     and warm, against the numpy client; benchmarks/serving_batch.py's
+     arrival-rate sweep (x1, x0.5, x0.25 of 64 requests) as one launch of
+     three CTAs, against the numpy client and its plain version; the
+     kernel's row: the device time of the 4-request
+     full-width settle from its trace, its bound, the latency bound of its
+     dependent chain, and the program's rounds and blocks.
+     ``python3 chip_smoke.py batcher`` runs the build and this phase alone
+     ("phases": ["build", "batcher"]).
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -144,6 +167,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1918,6 +1942,10 @@ SWEEP_DRAINS = (300, 600, 900)
 # equal share while it draws, its tail the budget over the lanes still drawing after
 CORE_DRAINS = (1400, 450, 300, 350)
 FP64_PEAK = 34e12              # H100 SXM data sheet: fp64 outside the tensor cores
+# fp64 latency of one dependent operation: 8 cycles (DADD/DMUL/DFMA, the published
+# microbenchmarks of Volta and Ampere) at the H100 SXM's 1,980 MHz boost clock; a
+# dependent chain of n operations takes at least n of them (latency_bound_ms)
+FP64_DEP_NS = 8 / 1.98
 # fp64 operations of csrc/fastsim.cu, counted from the code: per instruction (the issue
 # time's division and the branch's adds, maxima and compares; an MM by its WLS path, the
 # longest), per bucket grant beyond its walks, per walk step (the floor division, the
@@ -2020,6 +2048,7 @@ def kernel_ms(torch, fn, name: str, reps: int) -> tuple[float, str]:
 
 def timed_row(ms: float, timer: str, bound: dict) -> dict:
     return {"ms": ms, "timer": timer, **bound,
+            "latency_bound_ms": bound["serial_chain_ops"] * FP64_DEP_NS / 1e6,
             "lane_steps_per_s": bound["lane_steps"] / (ms / 1e3),
             "ns_per_chain_op": ms * 1e6 / bound["serial_chain_ops"]}
 
@@ -2353,10 +2382,381 @@ def simulate_phase(torch, card: str) -> list[dict]:
              "library_note": "none: no PyTorch call computes the scan",
              "numpy_ms": row["numpy_ms"], "timer": row["timer"],
              "serial_chain_ops": row["serial_chain_ops"],
+             "latency_bound_ms": row["latency_bound_ms"],
              "ns_per_chain_op": row["ns_per_chain_op"],
              "lane_steps_per_s": row["lane_steps_per_s"], "main_path": row["main_path"],
              **({"ms_port_model": row["ms_port_model"]} if "ms_port_model" in row else {}),
              "work": works[key]} for key, row in rows.items()]
+
+
+# ------------------------------------------------------------------ batcher
+
+# the serving batcher's chip and trace (benchmarks/online_scaling.py:101-104): four
+# RASA-WLBP cores sharing 32 bytes/cycle, epochs of 1024 cycles
+BATCH_CHIP = dict(n_cores=4, design="RASA-WLBP", bw_bytes_per_cycle=32.0)
+BATCH_MIXED = ("BASE", "RASA-WLBP", "RASA-DMDB-WLS", "RASA-WLBP")
+TRACE_KW = dict(seed=0, mean_gap=2, d_model=128, prompt_lens=(16, 32, 64),
+                decode_steps=(1, 2), decode_batch=8)
+BATCH_POLICIES = ("fixed", "occupancy", "bandwidth", "predicted")
+BATCH_VARIANTS = ("demand", "mixed")
+# requests of each case, against the numpy client and against the plain version
+BATCH_N = 200
+# the full-width trace: qwen3-1.7b, 1 of 28 layers, ~0.65 M instructions a request
+FULL_ARCH, FULL_LAYERS = "qwen3-1.7b", 1
+FULL_KW = dict(seed=0, mean_gap=2, prompt_lens=(32, 64), decode_steps=(1, 2))
+FULL_N_NUMPY, FULL_N = 4, 8
+SCALE_N = 2000
+# the arrival-rate sweep of benchmarks/serving_batch.py:66,81-83
+RATE_FACTORS = (1.0, 0.5, 0.25)
+SWEEP_KW = dict(seed=3, mean_gap=4, d_model=128, prompt_lens=(16, 32, 64),
+                decode_steps=(1, 2), decode_batch=8)
+SWEEP_N = 64
+#: what ``python3 chip_smoke.py batcher`` runs (its last line names them)
+BATCHER_PHASES = ("build", "batcher")
+PREDICTION_BATCH = (
+    "jitarb over qwen3-1.7b FULL width (1 of 28 layers, ~0.65 M instructions a request), "
+    "4 requests on 4 RASA-WLBP cores under occupancy: 3-12 s of device time in one launch "
+    "(a relaxation round re-simulates each in-flight lane's dirty suffix, ~0.65 M steps at "
+    "~1.3 us a step as fastsim_scan runs them, 4 lanes on 4 warps of one SM; 2-4 rounds a "
+    "start), latency-bound, 1e5-1e6 x its throughput bound; 16 requests 15-60 s. 2,000 "
+    "TRACE_KW requests (fixed@1): 0.5-3 s of device time (~1,200 lane steps a request, "
+    "~2,000 settles of a few rounds on one SM), host planning 0.5-2 s, the numpy client "
+    "15-30 s; the card idles (one CTA on one of 132 SMs).")
+
+
+def batch_chip(chip_mod, variant: str, backend: str, **kw):
+    """A case's chip: demand-weighted shares on BATCH_CHIP, or the mixed chip."""
+    if variant == "mixed":
+        return chip_mod.ChipConfig(backend=backend, n_cores=None, design=None,
+                                   cores=BATCH_MIXED,
+                                   bw_bytes_per_cycle=BATCH_CHIP["bw_bytes_per_cycle"], **kw)
+    return chip_mod.ChipConfig(backend=backend, share_policy=variant, **BATCH_CHIP, **kw)
+
+
+def full_requests(n: int):
+    from repro_torch.serving.simbatch import model_trace
+    from repro_torch.workload import CompileOptions
+    return model_trace(FULL_ARCH, n, options=CompileOptions(max_layers=FULL_LAYERS),
+                       **FULL_KW)
+
+
+def batch_numpy(what: str, n: int, policy: str, variant: str | None = None):
+    """The port's numpy client on a worker process: ``what`` names the trace
+    (``trace``: TRACE_KW; ``full``: the full-width model trace; ``sweep x<f>``:
+    a variant of the rate sweep).  Returns the BatchReport and its seconds
+    (lowering included)."""
+    import dataclasses as dc
+    from repro_torch.multicore import chip as chip_mod
+    from repro_torch.serving.simbatch import run_batcher, synthetic_trace
+    t0 = time.perf_counter()
+    if what == "full":
+        requests = full_requests(n)
+    elif what.startswith("sweep"):
+        f = float(what.split("x")[1])
+        requests = [dc.replace(r, arrival_epoch=int(r.arrival_epoch * f))
+                    for r in synthetic_trace(n, **SWEEP_KW)]
+    else:
+        requests = synthetic_trace(n, **TRACE_KW)
+    chip = batch_chip(chip_mod, variant, "numpy") if variant \
+        else chip_mod.ChipConfig(backend="numpy", **BATCH_CHIP)
+    rep = run_batcher(requests, chip, policy=policy, batch_size=1)
+    return rep, time.perf_counter() - t0
+
+
+def plain_worker_init(src: str) -> None:
+    """A plain-program worker: the repo's sources, the lowest priority (the
+    main path and the numpy pool go first)."""
+    sim_worker_init(src)
+    os.nice(19)
+
+
+def batch_plain(args, kw):
+    """The program's plain version on a worker process, on the host's CPU
+    (one thread, no autograd records): its inputs as numpy.  Returns finish,
+    adm, stats as numpy and its ms."""
+    import torch
+    from repro_torch.kernels import jitarb as kj
+    torch.set_num_threads(1)
+    targs = tuple(torch.as_tensor(a) for a in args)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        fin, adm, st = kj.jitarb_plain(*targs, **kw)
+    ms = (time.perf_counter() - t0) * 1e3
+    return fin.numpy(), adm.numpy(), st.numpy(), ms
+
+
+def program_ops(traces, lane_blocks: float) -> float:
+    """fp64 operations of the steps a settle ran: its lane blocks (64 steps
+    each) at the trace table's mix of instructions (SCAN_OPS; every TL and
+    charged TS a grant; the walk steps, which depend on the shares, not
+    counted)."""
+    n = sum(len(t) for t in traces)
+    per = sum(SCAN_OPS["tl"] * t.n_tl + SCAN_OPS["ts"] * t.n_ts + SCAN_OPS["mm"] * t.n_mm
+              + SCAN_OPS["grant"] * (t.n_tl + t.n_ts) for t in traces) / max(n, 1)
+    return lane_blocks * 64 * per
+
+
+def program_bound(args, stats, traces) -> dict:
+    """The whole-trace program's bound: its inputs read once and its outputs
+    written once over the HBM rate, and the fp64 operations of the steps this
+    run took over the fp64 peak; beside it the latency bound of the dependent
+    chain (the longest lane's steps, CHAIN_OPS_PER_STEP dependent operations
+    each, FP64_DEP_NS apiece)."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    nbytes += 2 * 8 * args[8].numel() + 8 * stats.numel()
+    lane_blocks = float(stats[:, 4].sum())
+    fields = bound_fields(nbytes / HBM_BYTES_PER_S * 1e3,
+                          program_ops(traces, lane_blocks) / FP64_PEAK * 1e3)
+    chain = CHAIN_OPS_PER_STEP * 64 * float(stats[:, 5].max())
+    fields.update(serial_chain_ops=chain, latency_bound_ms=chain * FP64_DEP_NS / 1e6,
+                  lane_steps=lane_blocks * 64)
+    return fields
+
+
+def batcher_phase(torch, card: str) -> list[dict]:
+    """Phase 12: the serving batcher's whole-trace program on the card.  The
+    kernel against its plain version (on worker processes, on the host's
+    CPU) on the main path's inputs of the BATCH_N-request cases and of the
+    rate sweep's one launch, and against the port's numpy client
+    (BATCH_N requests) under fixed@1, occupancy, bandwidth and predicted,
+    with demand shares and on a mixed chip; qwen3-1.7b at full width through
+    the kernel, the incremental client on cuda (phase_aware, and occupancy
+    through _Batcher) and the numpy client; 2,000 requests cold and warm;
+    the rate sweep as one launch of three CTAs.  Then the kernel's row."""
+    import dataclasses as dc
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from repro_torch.core.fastsim import SNAP_STRIDE
+    from repro_torch.core.trace import compiled_trace
+    from repro_torch.kernels import fastsim_scan as fsk
+    from repro_torch.kernels import jitarb as kj
+    from repro_torch.multicore import chip as chip_mod
+    from repro_torch.multicore import jitarb
+    from repro_torch.obs import OFF
+    from repro_torch.serving import simbatch
+    from repro_torch.serving.simbatch import (report_from_finishes, run_batcher,
+                                              synthetic_trace)
+    print("prediction (written before the first run of phase 12): " + PREDICTION_BATCH)
+    host: dict = {}
+
+    def clock(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host[key] = time.perf_counter() - t0
+        print(f"batcher: {key} {host[key]:.3f} s", flush=True)
+        return out
+
+    def traffic(requests):
+        return [(r.arrival_epoch, r.specs) for r in requests]
+
+    def expect(what, got, want):
+        if got != want:
+            raise RuntimeError(f"batcher: {what}: the reports differ")
+
+    cuda_chip = chip_mod.ChipConfig(backend="cuda", **BATCH_CHIP)
+    np_chip = dc.replace(cuda_chip, backend="numpy")
+    cases = [(p, v) for v in BATCH_VARIANTS for p in BATCH_POLICIES]
+    trace = synthetic_trace(BATCH_N, **TRACE_KW)
+    base = synthetic_trace(SWEEP_N, **SWEEP_KW)
+    variants = [[dc.replace(r, arrival_epoch=int(r.arrival_epoch * f)) for r in base]
+                for f in RATE_FACTORS]
+    # the plain version's inputs: the main path's, those of the eight cases (as
+    # run_batcher plans them on a cuda chip) and of the sweep's launch
+    plain_in = {}
+    for p, v in cases:
+        plan, why = jitarb.plan_ex(traffic(trace), batch_chip(chip_mod, v, "cuda"), policy=p)
+        if plan is None:
+            raise RuntimeError(f"batcher: {p}/{v} outside the program's domain: {why}")
+        plain_in[f"{p}/{v}"] = jitarb._inputs([plan])
+    sweep_plans = jitarb.plan_many([traffic(v) for v in variants], cuda_chip)
+    if sweep_plans is None:
+        raise RuntimeError("batcher: the rate sweep fell outside the domain")
+    plain_in["sweep"] = jitarb._inputs(sweep_plans)
+    spawn = multiprocessing.get_context("spawn")
+    src = str(ROOT / "src")
+    pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=spawn, initializer=sim_worker_init,
+                               initargs=(src,))
+    # one process a plain run, at the lowest priority: it steps the program in
+    # PyTorch calls on the host's CPU (~0.7 ms an instruction step; 147-160 s a
+    # case of BATCH_N requests on an H100 machine's host), beside the numpy pool
+    # and the main path
+    plain_pool = ProcessPoolExecutor(len(plain_in), mp_context=spawn,
+                                     initializer=plain_worker_init, initargs=(src,))
+    with pool, plain_pool:
+        t_pool = time.perf_counter()
+        futs = {
+            "plain": {key: plain_pool.submit(batch_plain,
+                                             tuple(a.cpu().numpy() for a in args), kw)
+                      for key, (args, kw) in plain_in.items()},
+            "cases": {(p, v): pool.submit(batch_numpy, "trace", BATCH_N, p, v)
+                      for p, v in cases},
+            "full": {p: pool.submit(batch_numpy, "full", FULL_N_NUMPY, p)
+                     for p in ("occupancy", "phase_aware")},
+            "scale": pool.submit(batch_numpy, "trace", SCALE_N, "fixed"),
+            "sweep": [pool.submit(batch_numpy, f"sweep x{f}", SWEEP_N, "fixed")
+                      for f in RATE_FACTORS]}
+
+        kj.reset_launches()         # ---- the main path: counts from 0 ----
+        fsk.reset_launches()
+        # 1. the eight cases through the kernel (run_batcher on a cuda chip)
+        got_cases = {}
+        for p, v in cases:
+            got_cases[p, v] = clock(f"case_{p}_{v}", lambda: run_batcher(
+                trace, batch_chip(chip_mod, v, "cuda"), policy=p, batch_size=1))
+            if got_cases[p, v].jit_gate is not None:
+                raise RuntimeError(f"batcher: {p}/{v} fell back ({got_cases[p, v].jit_gate})")
+        # 2. full width: lowering, planning and the settle apart
+        full4 = clock("full_requests", lambda: full_requests(FULL_N))
+        policy0 = cuda_chip.core_specs[0].policy
+        clock("full_lowering", lambda: [compiled_trace(
+            tuple(dc.replace(s, name="") for s in r.specs), policy0) for r in full4])
+        full_stats, full_reports, full_plans, out = {}, {}, {}, {}
+        for n in (FULL_N_NUMPY, FULL_N):
+            reqs = full4[:n]
+            plan, why = clock(f"full{n}_planning", lambda: jitarb.plan_ex(
+                traffic(reqs), cuda_chip, policy="occupancy"))
+            if plan is None:
+                raise RuntimeError(f"batcher: full width outside the domain: {why}")
+            st: dict = {}
+            if n == FULL_N_NUMPY:
+                # the kernel row's time: this settle's device record, from a trace
+                # whose warm-up step is one small launch
+                t0 = time.perf_counter()
+                prof = profiled(torch, lambda: out.update(r=jitarb.finish_admit_times(plan, st)),
+                                warm=lambda: torch.zeros(1, device=DEV))
+                host[f"full{n}_settle"] = time.perf_counter() - t0
+                print(f"batcher: full{n}_settle {host[f'full{n}_settle']:.3f} s (traced)")
+                fins, adm = out["r"]
+                recs = [(a, b) for k, a, b in device_spans(prof)
+                        if kj.KERNEL_NAMES["jitarb"] in k]
+            else:
+                fins, adm = clock(f"full{n}_settle", lambda: jitarb.finish_admit_times(plan, st))
+            full_stats[n], full_plans[n] = st, plan
+            kernel_rep = report_from_finishes(reqs, cuda_chip, fins, policy="occupancy",
+                                              admit_epochs=adm)
+            client_rep = clock(f"full{n}_cuda_client_occupancy", lambda: simbatch._Batcher(
+                reqs, cuda_chip, "occupancy", 1, cuda_chip.bw_bytes_per_cycle
+                / (2.0 * cuda_chip.n_cores), SNAP_STRIDE, 1, True, OFF).run())
+            expect(f"full width x{n}, kernel against the cuda client (occupancy)",
+                   kernel_rep, client_rep)
+            full_reports[n] = {"occupancy": kernel_rep}
+            if n == FULL_N_NUMPY:
+                full_reports[n]["phase_aware"] = clock(
+                    f"full{n}_cuda_client_phase_aware",
+                    lambda: run_batcher(reqs, cuda_chip, policy="phase_aware", batch_size=1))
+                if full_reports[n]["phase_aware"].jit_gate != "admission_policy":
+                    raise RuntimeError("batcher: phase_aware did not take the client")
+        # 3. scale: cold (planning included), then warm, then its parts apart
+        scale = synthetic_trace(SCALE_N, **TRACE_KW)
+        scale_rep = clock("scale_cold", lambda: run_batcher(scale, cuda_chip, policy="fixed",
+                                                            batch_size=1))
+        clock("scale_warm", lambda: run_batcher(scale, cuda_chip, policy="fixed",
+                                                batch_size=1))
+        scale_plan, _ = clock("scale_planning", lambda: jitarb.plan_ex(
+            traffic(scale), cuda_chip, policy="fixed"))
+        scale_st: dict = {}
+        clock("scale_settle", lambda: jitarb.finish_admit_times(scale_plan, scale_st))
+        if scale_rep.jit_gate is not None:
+            raise RuntimeError(f"batcher: the scale trace fell back ({scale_rep.jit_gate})")
+        # 4. the rate sweep: one launch, three CTAs
+        plans = clock("sweep_planning", lambda: jitarb.plan_many(
+            [traffic(v) for v in variants], cuda_chip))
+        if plans is None:
+            raise RuntimeError("batcher: the rate sweep fell outside the domain")
+        before = kj.launches["jitarb"]
+        sweep_fins = clock("sweep_settle", lambda: jitarb.finish_times_many(plans))
+        sweep_launches = kj.launches["jitarb"] - before
+        main_launches = {**kj.launches, **fsk.launches}   # ---- the main path ends ----
+        if sweep_launches != 1:
+            raise RuntimeError(f"batcher: the sweep took {sweep_launches} launches")
+        for key in ("jitarb", "scan", "mm_scan"):
+            if not main_launches[key]:
+                raise RuntimeError(f"batcher: the main path never launched {key}")
+
+        # 5. the kernel against its plain version on the main path's inputs
+        worst = 0.0
+        plain_ms = {}
+        kernel_case_ms = {}
+        for key, (args, kw) in plain_in.items():
+            fin_k, adm_k, st_k = kj.jitarb_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            kernel_case_ms[key] = event_ms(torch, lambda: kj.jitarb_cuda(*args, **kw), 1)
+            fin_p, adm_p, st_p, plain_ms[key] = futs["plain"][key].result()
+            err = max(float(np.abs(fin_k.cpu().numpy() - fin_p).max()),
+                      float(np.abs(adm_k.cpu().numpy() - adm_p).max()))
+            if err or not np.array_equal(st_k.cpu().numpy(), st_p):
+                raise RuntimeError(f"batcher: {key}: the kernel differs from its plain "
+                                   f"version by {err}")
+            worst = max(worst, err)
+        print(f"batcher: the kernel equals its plain version on the {len(cases)} cases of "
+              f"{BATCH_N} requests and the sweep's {len(RATE_FACTORS)} x {SWEEP_N} (plain on "
+              "the host's CPU, on workers); plain ms " + json.dumps(plain_ms)
+              + "; kernel ms " + json.dumps(kernel_case_ms))
+        # 6. against the numpy client
+        numpy_s = {}
+        for (p, v), fut in futs["cases"].items():
+            want, numpy_s[f"{p}/{v}"] = fut.result()
+            expect(f"{p}/{v} x{BATCH_N}, kernel against the numpy client",
+                   got_cases[p, v], want)
+        for pol, fut in futs["full"].items():
+            want, numpy_s[f"full {pol}"] = fut.result()
+            expect(f"full width x{FULL_N_NUMPY} {pol}, against the numpy client",
+                   full_reports[FULL_N_NUMPY][pol], want)
+        want, numpy_s["scale"] = futs["scale"].result()
+        expect(f"scale x{SCALE_N}, against the numpy client", scale_rep, want)
+        for f, v, fin, fut in zip(RATE_FACTORS, variants, sweep_fins, futs["sweep"]):
+            want, numpy_s[f"sweep x{f}"] = fut.result()
+            expect(f"sweep x{f}", report_from_finishes(v, cuda_chip, fin), want)
+        host["numpy_pool_wall"] = time.perf_counter() - t_pool
+    print("batcher: every kernel report equals the numpy client's and the cuda "
+          f"client's; launches {main_launches}; numpy client s " + json.dumps(numpy_s))
+
+    # 7. the row: the device time of the main path's full-width settle of
+    # FULL_N_NUMPY requests, from its trace (events over a rerun where the
+    # trace lost the record)
+    args, kw = jitarb._inputs([full_plans[FULL_N_NUMPY]])
+    name = kj.KERNEL_NAMES["jitarb"]
+    if len(recs) == 1:
+        ms, timer = (recs[0][1] - recs[0][0]) / 1e3, "profiler"
+    else:
+        ms, timer = event_ms(torch, lambda: kj.jitarb_cuda(*args, **kw), 1), "events"
+    _, _, st = kj.jitarb_cuda(*args, **kw)
+    traces = [compiled_trace(tuple(dc.replace(s, name="") for s in r.specs), policy0)
+              for r in full4[:FULL_N_NUMPY]]
+    bound = program_bound(args, st.cpu(), traces)
+    report_st = {f: float(x) for f, x in zip(kj.STATS_FIELDS, st[0].tolist())}
+    fixed_key = f"fixed/{BATCH_VARIANTS[0]}"
+    # the program's own counters of the traced settle
+    st = st.cpu()
+    report = {"host_s": host, "full_stats": full_stats,
+              "makespans": {f"full x{n}": r["occupancy"].makespan
+                            for n, r in full_reports.items()},
+              "scale_makespan": scale_rep.makespan, "traced_stats": report_st, "card": card}
+    print(f"batcher: {json.dumps(report)}")
+    return [{
+        "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/jitarb.cu",
+        "replaces": "src/repro/multicore/jitarb.py:462 (program; jit :899, vmap :900-903)",
+        "launches": main_launches["jitarb"], "max_abs_err": worst, "ms": ms,
+        "timer": timer, "plain_ms": plain_ms[fixed_key],
+        "plain_work": f"{fixed_key}, {BATCH_N} requests, the main path's inputs (the plain "
+                      "version on the host's CPU, one thread, on a worker process)",
+        "kernel_ms_plain_work": kernel_case_ms[fixed_key],
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "latency_bound_ms": bound["latency_bound_ms"],
+        "serial_chain_ops": bound["serial_chain_ops"], "lane_steps": bound["lane_steps"],
+        "library_ms": None, "library_note": "none: no PyTorch call computes the program",
+        "rounds": int(st[0, 1]), "blocks": int(st[0, 2]),
+        "settle_s": {n: host[f"full{n}_settle"] for n in (FULL_N_NUMPY, FULL_N)},
+        "planning_s": {n: host[f"full{n}_planning"] for n in (FULL_N_NUMPY, FULL_N)},
+        "lowering_s": host["full_lowering"],
+        "scale_s": {k: host[f"scale_{k}"] for k in ("cold", "warm", "planning", "settle")},
+        "scale_stats": scale_st,
+        "work": f"{FULL_ARCH} FULL width, {FULL_LAYERS} of 28 layers, {FULL_N_NUMPY} requests "
+                "(prompts 32/64, 1-2 decode steps) on 4 RASA-WLBP cores at 32 B/cycle, "
+                "occupancy, one launch"}]
 
 
 def main() -> int:
@@ -2396,6 +2796,10 @@ def main() -> int:
         phase("simulate")
         kernels = simulate_phase(torch, card)
         return finish(torch, t_start, kernels, card, kind, phases=PARTIAL_PHASES)
+    if sys.argv[1:] == ["batcher"]:           # the build and phase 12 alone
+        phase("batcher")
+        kernels = batcher_phase(torch, card)
+        return finish(torch, t_start, kernels, card, kind, phases=BATCHER_PHASES)
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
@@ -2444,6 +2848,8 @@ def main() -> int:
     print("train: " + json.dumps(trained))
     phase("simulate")
     simulated = simulate_phase(torch, card)
+    phase("batcher")
+    batched = batcher_phase(torch, card)
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
@@ -2510,7 +2916,7 @@ def main() -> int:
         "f32_library_kernels": flash32["library_kernels"],
         "f32_work": "ms etc.: phase 4's f32 row at the qwen3-1.7b prefill layer's shape "
                     "(the SIMT kernel); launches: phase 6's 28 layers cast to f32"})
-    return finish(torch, t_start, kernels + simulated, card, kind)
+    return finish(torch, t_start, kernels + simulated + batched, card, kind)
 
 
 def finish(torch, t_start: float, kernels: list, card: str, kind: str,

@@ -82,3 +82,17 @@ def reference_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.T
     a16 = torch.as_tensor(a).to(BF16).float()
     b16 = torch.as_tensor(b).to(BF16).float()
     return torch.as_tensor(c).float() + a16 @ b16
+
+
+def simulate_chip(workload, chip=None, **kwargs):
+    """Chip-level (multi-core) simulation entry point.
+
+    Convenience re-export: delegates to
+    :func:`repro_torch.multicore.simulate_chip` (imported lazily so
+    ``repro_torch.core`` stays free of the chip layer).  ``workload`` is a
+    single :class:`~repro_torch.core.tiling.GemmSpec` (partitioned across
+    cores) or a sequence of them (scheduled across cores); see
+    :mod:`repro_torch.multicore` for the knobs.
+    """
+    from ..multicore import simulate_chip as _simulate_chip
+    return _simulate_chip(workload, chip, **kwargs)

@@ -343,6 +343,11 @@ class SimCarry:
                    max(self.reg_ready))
 
 
+#: snapshot cadence of :func:`run_segment` (instructions between carries);
+#: power of two so the per-instruction check stays a single compare.
+SNAP_STRIDE = 4096
+
+
 def _run_numpy_params(trace: CompiledTrace, cfg: EngineConfig,
                       params: StreamModelParams
                       ) -> tuple[TimingResult, float]:
@@ -588,6 +593,223 @@ def run_segment(trace: CompiledTrace, cfg: EngineConfig,
         have_prev = True
 
     return _result(trace, cfg, t_end, wl_skips, bw_stall), last_grant, snaps
+
+
+def completed_prefix(trace: CompiledTrace, cfg: EngineConfig,
+                     params: StreamModelParams, limit: float,
+                     carry: SimCarry | None = None) -> int:
+    """How many leading instructions of ``trace`` have fully retired by
+    time ``limit`` (engine-local cycles) under ``params``'s schedule.
+
+    This is the deterministic preemption replay
+    (:mod:`repro_torch.multicore.faults`): when a core goes down at an epoch
+    boundary, the surviving prefix of its in-flight segment is exactly the
+    instructions whose *completion* -- load data arrival for ``rasa_tl``,
+    store retire for ``rasa_ts``, drain end for ``rasa_mm`` -- lands at or
+    before the boundary.  The loop mirrors :func:`run_segment` statement
+    for statement (same arithmetic, same order, so the cut index is
+    bit-identical on every backend) and stops at the first instruction
+    that completes after ``limit``: returns ``k`` such that instructions
+    ``[0, k)`` are done and instruction ``k`` is not.
+
+    ``carry`` resumes the replay from a :class:`SimCarry` recorded by
+    :func:`run_segment` under the *same* ``params`` schedule.  Valid only
+    when ``carry.t_end <= limit``: ``t_end`` is the max completion time
+    over instructions ``[0, carry.i)``, so none of them can be the first
+    violator and the cut from ``carry.i`` on is bit-identical to the
+    full replay -- repeated preemptions of one segment then replay only
+    the work past its latest checkpoint instead of its whole history.
+    """
+    if carry is not None and carry.t_end > limit:
+        raise ValueError("completed_prefix carry is past the limit: an "
+                         "instruction before carry.i may be the cut")
+    wl = cfg.wl_cycles
+    fs = cfg.fs_cycles
+    dr = cfg.dr_cycles
+    issue_per_cycle = cfg.core_issue_width * (cfg.core_clock_hz
+                                              / cfg.engine_clock_hz)
+    load_lat = float(cfg.load_latency)
+    wlbp, wls, pipe = cfg.wlbp, cfg.wls, cfg.pipe
+
+    port = params.is_port_model
+    inv_load = 1.0 / params.load_ports
+    store_free = params.store_ports is None
+    inv_store = 1.0 / params.store_ports if not store_free else 0.0
+    charge = params.charge_store_bytes and not port
+    shares = list(params.shares)
+    n_sh = len(shares)
+    E = params.epoch_cycles
+    sched_end = params.schedule_end
+    tail = params.tail_share
+    burst = params.burst_bytes
+    tokens = burst
+    bt = 0.0
+
+    def grant(tokens, bt, t_earliest, n_bytes):
+        # == run_segment's inlined EpochBandwidthLoadModel._grant
+        while bt < t_earliest:
+            rate = shares[int(bt // E)] if bt // E < n_sh else tail
+            if bt >= sched_end:
+                step_end = t_earliest
+            else:
+                e_end = (int(bt // E) + 1) * E
+                step_end = t_earliest if t_earliest < e_end else e_end
+            if math.isinf(rate):
+                tokens = burst
+            else:
+                tokens = tokens + rate * (step_end - bt)
+                if tokens > burst:
+                    tokens = burst
+            bt = step_end
+        need = n_bytes if n_bytes < burst else burst
+        if tokens >= need:
+            start = t_earliest
+        else:
+            t, tk = bt, tokens
+            while True:
+                rate = shares[int(t // E)] if t // E < n_sh else tail
+                if math.isinf(rate):
+                    start = t
+                    break
+                if rate <= 0.0 and t >= sched_end:
+                    raise RuntimeError("tail share must be > 0: request can "
+                                       "never be granted")
+                e_end = (int(t // E) + 1) * E
+                if rate > 0.0:
+                    t_hit = t + (need - tk) / rate
+                    if t_hit <= e_end or t >= sched_end:
+                        start = t_hit
+                        break
+                    tk += rate * (e_end - t)
+                t = e_end
+            if start < t_earliest:
+                start = t_earliest
+        while bt < start:
+            rate = shares[int(bt // E)] if bt // E < n_sh else tail
+            if bt >= sched_end:
+                step_end = start
+            else:
+                e_end = (int(bt // E) + 1) * E
+                step_end = start if start < e_end else e_end
+            if math.isinf(rate):
+                tokens = burst
+            else:
+                tokens = tokens + rate * (step_end - bt)
+                if tokens > burst:
+                    tokens = burst
+            bt = step_end
+        return start, tokens - n_bytes, bt
+
+    op = trace.opcode.tolist()
+    rd = trace.r_dst.tolist()
+    ra = trace.r_a.tolist()
+    rb = trace.r_b.tolist()
+    nb = trace.nbytes.tolist()
+    tms = trace.tm.tolist()
+    reus = trace.reusable.tolist()
+
+    if carry is None:
+        i0 = 0
+        reg_ready = [0.0] * NUM_TREGS
+        p_ff_start = -1.0
+        p_ff_end = p_fs_end = p_dr_end = 0.0
+        have_prev = False
+        wl_port_free = 0.0
+        next_free = store_next = 0.0
+    else:
+        i0 = carry.i
+        reg_ready = list(carry.reg_ready)
+        p_ff_start = carry.p_ff_start
+        p_ff_end = carry.p_ff_end
+        p_fs_end = carry.p_fs_end
+        p_dr_end = carry.p_dr_end
+        have_prev = carry.have_prev
+        wl_port_free = carry.wl_port_free
+        next_free = carry.next_free
+        store_next = carry.store_next
+        tokens = carry.tokens
+        bt = carry.bt
+
+    for i in range(i0, len(op)):
+        o = op[i]
+        t_issue = i / issue_per_cycle
+
+        if o == OP_TL:
+            port_start = t_issue if t_issue > next_free else next_free
+            if port:
+                start = port_start
+            else:
+                start, tokens, bt = grant(tokens, bt, port_start, nb[i])
+            next_free = start + inv_load
+            done = start + load_lat
+            if done > limit:
+                return i
+            reg_ready[rd[i]] = done
+            continue
+
+        if o == OP_TS:
+            r = reg_ready[ra[i]]
+            t_avail = t_issue if t_issue > r else r
+            if store_free:
+                e = t_avail + 1.0
+            else:
+                port_start = t_avail if t_avail > store_next else store_next
+                if charge:
+                    start, tokens, bt = grant(tokens, bt, port_start, nb[i])
+                else:
+                    start = port_start
+                store_next = start + inv_store
+                e = start + 1.0
+            if e > limit:
+                return i
+            continue
+
+        if o != OP_MM:          # OP_NOP padding: retires instantly
+            continue
+
+        c, a, b = rd[i], ra[i], rb[i]
+        t_ready_ac = max(t_issue, reg_ready[a], reg_ready[c])
+        t_ready_b = max(t_issue, reg_ready[b])
+        reuse = wlbp and reus[i]
+
+        if reuse:
+            ff_start = max(t_ready_ac, p_ff_end if have_prev else 0.0)
+        elif wls:
+            wl_start = max(t_ready_b, p_ff_start if have_prev else 0.0,
+                           wl_port_free)
+            hidden = have_prev and wl_start <= p_fs_end
+            weights_ready = (wl_start + 1.0) if hidden else (wl_start + wl)
+            ff_start = max(t_ready_ac, p_ff_end if have_prev else 0.0,
+                           weights_ready)
+            wl_port_free = wl_start + wl
+        elif pipe:
+            wl_start = max(t_ready_b, p_fs_end if have_prev else 0.0,
+                           wl_port_free)
+            ff_start = max(t_ready_ac, wl_start + wl,
+                           p_dr_end if have_prev else 0.0)
+            wl_port_free = wl_start + wl
+        else:  # BASE
+            wl_start = max(t_ready_b, p_dr_end if have_prev else 0.0,
+                           wl_port_free)
+            ff_start = max(t_ready_ac, wl_start + wl)
+            wl_port_free = wl_start + wl
+
+        ff_end = ff_start + tms[i]
+        fs_end = ff_end + fs
+        dr_end = fs_end + dr
+        if dr_end > limit:
+            return i
+        reg_ready[c] = dr_end
+        p_ff_start, p_ff_end, p_fs_end, p_dr_end = (ff_start, ff_end,
+                                                    fs_end, dr_end)
+        have_prev = True
+
+    return len(op)
+
+
+def _pow2(n: int, lo: int = 16) -> int:
+    """The least power of two >= ``n``, at least ``lo``."""
+    return max(lo, 1 << max(0, (n - 1)).bit_length())
 
 
 

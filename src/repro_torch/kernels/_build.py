@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>-<hash>.so`` under
 the repository root (``nvcc`` for ``sm_90a``, plain C interface), where the
-hash covers the source and its flags, so an edited source is rebuilt.  A
+hash covers the source, the headers it includes and its flags, so an edited
+source or header is rebuilt.  A
 failed build raises; there is no fallback.
 """
 
@@ -21,11 +22,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("rasa_gemm", "flash_attention", "ssd_chunk", "fastsim")
-#: flags a source adds to NVCC_FLAGS: the simulator's scan rounds every
-#: product before the sum it feeds, as the numpy lane it must equal does
-#: (no fused multiply-add)
-SOURCE_FLAGS = {"fastsim": ["-fmad=false"]}
+SOURCES = ("rasa_gemm", "flash_attention", "ssd_chunk", "fastsim", "jitarb")
+#: flags a source adds to NVCC_FLAGS: the simulator's scan and the batcher's
+#: whole-trace program round every product before the sum it feeds, as the
+#: numpy lane they must equal does (no fused multiply-add)
+SOURCE_FLAGS = {"fastsim": ["-fmad=false"], "jitarb": ["-fmad=false"]}
+#: headers a source includes: their bytes enter its hash, so an edited
+#: header rebuilds every source that includes it
+HEADERS = {"fastsim": ["fastsim_step.cuh"], "jitarb": ["fastsim_step.cuh"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per fresh build
@@ -49,6 +53,7 @@ def _flags(name: str) -> list[str]:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join((CSRC / h).read_bytes() for h in HEADERS.get(name, []))
     tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

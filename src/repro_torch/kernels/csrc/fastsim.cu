@@ -10,7 +10,8 @@
 // Each thread runs one lane's whole recurrence, instruction after
 // instruction, in float64 with the carry in registers (the eight register
 // ready-times are kept in registers by unrolled selects, never indexed
-// memory).  A lane of fastsim_scan is one (trace, design) pair, one core,
+// memory).  The full-stream step lives in fastsim_step.cuh, shared with
+// the whole-trace arbitration kernel (jitarb.cu).  A lane of fastsim_scan is one (trace, design) pair, one core,
 // or a run of packed segments; its trace is the range [lo, hi) of the
 // shared code/val columns, so the sweep, cores and packed layouts of the
 // reference are the same kernel with other lane tables.  Lanes are whole:
@@ -24,23 +25,20 @@
 // lane's arithmetic bit for bit).
 //
 // Bit-equality with the numpy lane (core/fastsim.py::run_segment):
-//  * every statement is transcribed from run_segment, in its order, with
+//  * every statement is transcribed from run_segment (fastsim_step.cuh and
+//    the MM-only step below), in its order, with
 //    Python's max() (the first of equal values) and its branches;
 //  * Python's float floor division (CPython's _float_div_mod) is py_floordiv;
 //  * this file is built with -fmad=false (kernels/_build.py): a product is
 //    rounded before the sum it feeds, as numpy rounds it;
 //  * double division, fmod and floor are correctly rounded on the card.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fastsim_step.cuh"
 
 namespace {
 
-constexpr int OP_TL = 0, OP_TS = 1, OP_MM = 2, OP_END = 4;
-constexpr int NREG = 8;
-// per-lane fields of lane_f (kernels/fastsim_scan.py, LANE_FIELDS)
-constexpr int kLaneF = 16;
+using namespace fastsim;
+
 // per-lane int64 fields of lane_i: trace lo, trace hi, share lo, share count
 constexpr int kLaneI = 4;
 // outputs per lane (and per emitted segment): t_end, wl_skips, bw_stall,
@@ -50,126 +48,11 @@ constexpr int kOut = 5;
 // differ in length), so lanes sharing a warp would wait on each other; with
 // a few hundred lanes at most, each lane has an SM's scheduler to itself
 constexpr int kLanesPerCta = 1;
-// error codes (fastsim_scan.py raises on them)
-constexpr int ERR_NEVER_GRANTED = 1;   // the numpy lane's RuntimeError
-constexpr int ERR_NO_PROGRESS = 2;     // a walk that would never end
 
-__device__ __forceinline__ double get_reg(const double (&r)[NREG], int i) {
-  double v = r[0];
-#pragma unroll
-  for (int k = 1; k < NREG; ++k) v = i == k ? r[k] : v;
-  return v;
-}
-
-__device__ __forceinline__ void set_reg(double (&r)[NREG], int i, double v) {
-#pragma unroll
-  for (int k = 0; k < NREG; ++k) r[k] = i == k ? v : r[k];
-}
-
-// Python's max(a, b) and max(a, b, c): the first of equal values
-__device__ __forceinline__ double pymax(double a, double b) { return b > a ? b : a; }
-__device__ __forceinline__ double pymax(double a, double b, double c) {
-  return pymax(pymax(a, b), c);
-}
-
-// a // b for Python floats (b > 0 here: the epoch length, maybe inf)
-__device__ __forceinline__ double py_floordiv(double a, double b) {
-  double mod = fmod(a, b);
-  double div = (a - mod) / b;
-  if (mod != 0.0) {
-    if ((b < 0.0) != (mod < 0.0)) div -= 1.0;
-  }
-  double floordiv;
-  if (div != 0.0) {
-    floordiv = floor(div);
-    if (div - floordiv > 0.5) floordiv += 1.0;
-  } else {
-    floordiv = copysign(0.0, a / b);
-  }
-  return floordiv;
-}
-
-struct Bucket {
-  const double* shares;
-  long long n_sh;
-  double E, tail, burst, sched_end;
-
-  // `shares[int(t // E)] if t // E < n_sh else tail`; fd = t // E
-  __device__ __forceinline__ double share_at(double t, double& fd) const {
-    fd = py_floordiv(t, E);
-    return fd < (double)n_sh ? shares[(long long)fd] : tail;
-  }
-
-  // the refill walk `while bt < t_to` of run_segment's grant
-  __device__ int advance(double& tokens, double& bt, double t_to, long long& walks) const {
-    while (bt < t_to) {
-      double fd;
-      double rate = share_at(bt, fd);
-      double step_end;
-      if (bt >= sched_end) {
-        step_end = t_to;
-      } else {
-        double e_end = (fd + 1.0) * E;
-        step_end = t_to < e_end ? t_to : e_end;
-      }
-      if (isinf(rate)) {
-        tokens = burst;
-      } else {
-        tokens = tokens + rate * (step_end - bt);
-        if (tokens > burst) tokens = burst;
-      }
-      if (!(step_end > bt)) return ERR_NO_PROGRESS;
-      bt = step_end;
-      ++walks;
-    }
-    return 0;
-  }
-
-  // run_segment's grant (EpochBandwidthLoadModel._grant): start time of a
-  // request of n_bytes at t_earliest; updates tokens and the bucket time
-  __device__ int grant(double& tokens, double& bt, double t_earliest, double n_bytes,
-                       double& start, long long& walks) const {
-    int err = advance(tokens, bt, t_earliest, walks);
-    if (err) return err;
-    double need = n_bytes < burst ? n_bytes : burst;
-    if (tokens >= need) {
-      start = t_earliest;
-    } else {
-      double t = bt, tk = tokens;
-      while (true) {
-        double fd;
-        double rate = share_at(t, fd);
-        if (isinf(rate)) {
-          start = t;
-          break;
-        }
-        if (rate <= 0.0 && t >= sched_end) return ERR_NEVER_GRANTED;
-        double e_end = (fd + 1.0) * E;
-        if (rate > 0.0) {
-          double t_hit = t + (need - tk) / rate;
-          if (t_hit <= e_end || t >= sched_end) {
-            start = t_hit;
-            break;
-          }
-          tk += rate * (e_end - t);
-        }
-        if (!(e_end > t)) return ERR_NO_PROGRESS;
-        t = e_end;
-        ++walks;
-      }
-      if (start < t_earliest) start = t_earliest;
-    }
-    err = advance(tokens, bt, start, walks);
-    if (err) return err;
-    tokens = tokens - n_bytes;
-    return 0;
-  }
-};
-
-// One lane's full-stream recurrence (run_segment).  kBucket: the token
-// bucket (else the port model: every request granted when its port frees);
-// kEmit: OP_END writes the finished segment's results to seg_out and resets
-// the carry, and issue indices restart after it.
+// One lane's full-stream recurrence (run_segment, fastsim_step.cuh).
+// kBucket: the token bucket (else the port model); kEmit: OP_END writes the
+// finished segment's results to seg_out and resets the carry, and issue
+// indices restart after it.
 template <bool kBucket, bool kEmit>
 __global__ void __launch_bounds__(kLanesPerCta) fastsim_scan_kernel(
     const int32_t* __restrict__ code, const double* __restrict__ val,
@@ -180,140 +63,39 @@ __global__ void __launch_bounds__(kLanesPerCta) fastsim_scan_kernel(
   if (lane >= n_lanes) return;
   const double* f = lane_f + (size_t)lane * kLaneF;
   const long long* li_ = lane_i + (size_t)lane * kLaneI;
-  const double wl = f[0], fs = f[1], dr = f[2], issue = f[3], load_lat = f[4];
-  const bool wlbp = f[5] != 0.0, wls = f[6] != 0.0, pipe = f[7] != 0.0;
-  const double inv_load = f[8], inv_store = f[9];
-  const bool store_free = f[10] != 0.0, charge = f[11] != 0.0;
+  const Design d(f);
   const Bucket bk{shares + li_[2], li_[3], f[12], f[13], f[14], f[15]};
   const long long lo = li_[0], hi = li_[1];
 
-  double reg_ready[NREG];
-  double p_ff_start, p_ff_end, p_fs_end, p_dr_end, wl_port_free, t_end, bw_stall;
-  double next_free, store_next, last_grant, tokens, bt;
-  bool have_prev;
-  long long wl_skips, walks, walks_done = 0;
-  auto reset = [&]() {
-#pragma unroll
-    for (int k = 0; k < NREG; ++k) reg_ready[k] = 0.0;
-    p_ff_start = -1.0;
-    p_ff_end = p_fs_end = p_dr_end = 0.0;
-    have_prev = false;
-    wl_port_free = 0.0;
-    t_end = 0.0;
-    wl_skips = 0;
-    bw_stall = 0.0;
-    next_free = store_next = 0.0;
-    last_grant = 0.0;
-    tokens = bk.burst;
-    bt = 0.0;
-    walks = 0;
-  };
-  reset();
+  Carry s;
+  s.reset(bk.burst);
+  long long walks_done = 0;
   int err = 0, seg = 0;
   long long i = 0;  // the segment-local instruction index
   for (long long pos = lo; pos < hi; ++pos, ++i) {
     const int c = code[pos];
-    const int op = c & 7;
-    const double t_issue = (double)i / issue;
-
-    if (kEmit && op == OP_END) {
+    if (kEmit && (c & 7) == OP_END) {
       double* o = seg_out + ((size_t)seg * n_lanes + lane) * kOut;
-      o[0] = t_end;
-      o[1] = (double)wl_skips;
-      o[2] = bw_stall;
-      o[3] = last_grant;
-      o[4] = (double)walks;
-      walks_done += walks;
-      reset();
+      o[0] = s.t_end;
+      o[1] = (double)s.wl_skips;
+      o[2] = s.bw_stall;
+      o[3] = s.last_grant;
+      o[4] = (double)s.walks;
+      walks_done += s.walks;
+      s.reset(bk.burst);
       ++seg;
       i = -1;
       continue;
     }
-
-    if (op == OP_TL) {
-      const double port_start = t_issue > next_free ? t_issue : next_free;
-      double start;
-      if (!kBucket) {
-        start = port_start;
-      } else {
-        err = bk.grant(tokens, bt, port_start, val[pos], start, walks);
-        if (err) break;
-        bw_stall += start - port_start;
-      }
-      next_free = start + inv_load;
-      if (start > last_grant) last_grant = start;
-      const double done = start + load_lat;
-      set_reg(reg_ready, (c >> 4) & 15, done);
-      if (done > t_end) t_end = done;
-      continue;
-    }
-
-    if (op == OP_TS) {
-      const double r = get_reg(reg_ready, (c >> 8) & 15);
-      const double t_avail = t_issue > r ? t_issue : r;
-      double e;
-      if (store_free) {
-        e = t_avail + 1.0;
-      } else {
-        const double port_start = t_avail > store_next ? t_avail : store_next;
-        double start;
-        if (kBucket && charge) {
-          err = bk.grant(tokens, bt, port_start, val[pos], start, walks);
-          if (err) break;
-          bw_stall += start - port_start;
-        } else {
-          start = port_start;
-        }
-        store_next = start + inv_store;
-        if (start > last_grant) last_grant = start;
-        e = start + 1.0;
-      }
-      if (e > t_end) t_end = e;
-      continue;
-    }
-
-    if (op != OP_MM) continue;  // OP_NOP padding
-
-    const int cr = (c >> 4) & 15, ar = (c >> 8) & 15, br = (c >> 12) & 15;
-    const double t_ready_ac = pymax(t_issue, get_reg(reg_ready, ar), get_reg(reg_ready, cr));
-    const double t_ready_b = pymax(t_issue, get_reg(reg_ready, br));
-    const bool reuse = wlbp && ((c >> 16) & 1);
-    double ff_start;
-    if (reuse) {
-      ff_start = pymax(t_ready_ac, have_prev ? p_ff_end : 0.0);
-      wl_skips += 1;
-    } else if (wls) {
-      const double wl_start = pymax(t_ready_b, have_prev ? p_ff_start : 0.0, wl_port_free);
-      const bool hidden = have_prev && wl_start <= p_fs_end;
-      const double weights_ready = hidden ? wl_start + 1.0 : wl_start + wl;
-      ff_start = pymax(t_ready_ac, have_prev ? p_ff_end : 0.0, weights_ready);
-      wl_port_free = wl_start + wl;
-    } else if (pipe) {
-      const double wl_start = pymax(t_ready_b, have_prev ? p_fs_end : 0.0, wl_port_free);
-      ff_start = pymax(t_ready_ac, wl_start + wl, have_prev ? p_dr_end : 0.0);
-      wl_port_free = wl_start + wl;
-    } else {  // BASE
-      const double wl_start = pymax(t_ready_b, have_prev ? p_dr_end : 0.0, wl_port_free);
-      ff_start = pymax(t_ready_ac, wl_start + wl);
-      wl_port_free = wl_start + wl;
-    }
-    const double ff_end = ff_start + val[pos];
-    const double fs_end = ff_end + fs;
-    const double dr_end = fs_end + dr;
-    set_reg(reg_ready, cr, dr_end);
-    if (dr_end > t_end) t_end = dr_end;
-    p_ff_start = ff_start;
-    p_ff_end = ff_end;
-    p_fs_end = fs_end;
-    p_dr_end = dr_end;
-    have_prev = true;
+    err = step<kBucket>(s, c, val + pos, (double)i / d.issue, d, bk);
+    if (err) break;
   }
   double* o = out + (size_t)lane * kOut;
-  o[0] = t_end;
-  o[1] = (double)wl_skips;
-  o[2] = bw_stall;
-  o[3] = last_grant;
-  o[4] = (double)(walks_done + walks);
+  o[0] = s.t_end;
+  o[1] = (double)s.wl_skips;
+  o[2] = s.bw_stall;
+  o[3] = s.last_grant;
+  o[4] = (double)(walks_done + s.walks);
   err_out[lane] = err;
 }
 

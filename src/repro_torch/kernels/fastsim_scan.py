@@ -178,52 +178,54 @@ class _Bucket:
 OUT_KEYS = ("t_end", "skips", "stall", "last_grant", "walks")
 
 
-def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
-                       lane_i: torch.Tensor, shares: torch.Tensor, *, bucket: bool,
-                       n_seg: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the full-stream scan: every lane steps through
-    its range in lockstep, each branch of run_segment computed for every
-    lane and kept where the lane's opcode takes it.  Returns ``out`` [L, 5]
-    and ``seg_out`` [n_seg, L, 5] (:data:`OUT_FIELDS`)."""
-    dev = code.device
-    n = lane_f.shape[0]
-    f = dict(zip(LANE_FIELDS, lane_f.unbind(1)))
-    wlbp, wls, pipe = (f[k] != 0 for k in ("wlbp", "wls", "pipe"))
-    store_free, charge = f["store_free"] != 0, f["charge"] != 0
-    lo, hi, sh_lo, sh_n = lane_i.unbind(1)
-    bk = _Bucket(shares, sh_lo, sh_n, f["epoch"], f["tail"], f["burst"], f["sched_end"])
-    lanes = torch.arange(n, device=dev)
+def plain_state(burst: torch.Tensor) -> dict:
+    """A fresh carry of the plain lanes (run_segment's initial state), one
+    entry per lane of ``burst``; :data:`CARRY_KEYS` order."""
+    n, dev = burst.shape[0], burst.device
     f64 = dict(dtype=torch.float64, device=dev)
     zero = torch.zeros(n, **f64)
+    return dict(rr=torch.zeros((n, NUM_TREGS), **f64), pffs=torch.full((n,), -1.0, **f64),
+                pffe=zero, pfse=zero, pdre=zero,
+                have_prev=torch.zeros(n, dtype=torch.bool, device=dev),
+                wlfree=zero, t_end=zero, skips=zero, stall=zero, next_free=zero,
+                store_next=zero, last_grant=zero, tokens=burst.clone(), bt=zero, walks=zero)
 
-    def fresh():
-        return dict(rr=torch.zeros((n, NUM_TREGS), **f64), pffs=torch.full((n,), -1.0, **f64),
-                    pffe=zero, pfse=zero, pdre=zero, have_prev=torch.zeros(n, dtype=torch.bool,
-                                                                           device=dev),
-                    wlfree=zero, t_end=zero, skips=zero, stall=zero, next_free=zero,
-                    store_next=zero, last_grant=zero, tokens=f["burst"].clone(), bt=zero,
-                    walks=zero)
 
-    s = fresh()
-    walks_done = zero
-    li = zero                    # the segment-local instruction index
-    seg = torch.zeros(n, dtype=torch.int64, device=dev)
-    err = torch.zeros(n, dtype=torch.int32, device=dev)
-    seg_out = torch.zeros((n_seg, n, len(OUT_FIELDS)), **f64)
-    steps = int((hi - lo).max()) if n else 0
-    for k in range(steps):
-        pos = lo + k
-        act = (pos < hi) & (err == 0)
-        at = torch.where(act, pos, 0)
-        c, v = code[at], val[at]
+#: the plain lanes' carry entries (``rr`` is the eight register ready-times)
+CARRY_KEYS = ("rr", "pffs", "pffe", "pfse", "pdre", "have_prev", "wlfree", "t_end", "skips",
+              "stall", "next_free", "store_next", "last_grant", "tokens", "bt")
+
+
+class PlainLanes:
+    """The lanes of the plain full-stream scan: their design and bucket
+    fields (``lane_f`` [L, 16], :data:`LANE_FIELDS`) and the token buckets
+    over ``shares``; :meth:`step` runs one instruction of every lane."""
+
+    def __init__(self, lane_f: torch.Tensor, shares: torch.Tensor, sh_lo: torch.Tensor,
+                 sh_n: torch.Tensor, *, bucket: bool, tail=None, sched_end=None):
+        self.f = f = dict(zip(LANE_FIELDS, lane_f.unbind(1)))
+        self.wlbp, self.wls, self.pipe = (f[k] != 0 for k in ("wlbp", "wls", "pipe"))
+        self.store_free, self.charge = f["store_free"] != 0, f["charge"] != 0
+        self.bk = _Bucket(shares, sh_lo, sh_n, f["epoch"], f["tail"] if tail is None else tail,
+                          f["burst"], f["sched_end"] if sched_end is None else sched_end)
+        self.bucket = bucket
+        self.lanes = torch.arange(lane_f.shape[0], device=lane_f.device)
+
+    def step(self, s: dict, c: torch.Tensor, v: torch.Tensor, li: torch.Tensor,
+             act: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+        """run_segment's statements for one instruction of every lane where
+        ``act``: ``c`` the packed code, ``v`` the value, ``li`` the
+        instruction's index in its trace.  Updates the carry ``s`` in place
+        and returns the lanes' error codes."""
+        f, bk, lanes = self.f, self.bk, self.lanes
+        wlbp, wls, pipe, store_free, charge = (self.wlbp, self.wls, self.pipe, self.store_free,
+                                               self.charge)
         op = c & 7
         rd, ra, rb = (c >> 4) & 15, (c >> 8) & 15, (c >> 12) & 15
         t_issue = li / f["issue"]
         is_tl, is_ts, is_mm = act & (op == OP_TL), act & (op == OP_TS), act & (op == OP_MM)
-        is_end = act & (op == OP_END) if n_seg else torch.zeros_like(act)
         # the branches some lane takes at this step (one read of the device)
-        any_tl, any_ts, any_mm, any_end = torch.stack(
-            [is_tl.any(), is_ts.any(), is_mm.any(), is_end.any()]).tolist()
+        any_tl, any_ts, any_mm = torch.stack([is_tl.any(), is_ts.any(), is_mm.any()]).tolist()
         rr = s["rr"]
         new_reg = rr[lanes, rd]
         te = s["t_end"]
@@ -234,7 +236,7 @@ def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tens
             t_avail = torch.where(t_issue > r_ts, t_issue, r_ts)
             port_ts = torch.where(t_avail > s["store_next"], t_avail, s["store_next"])
             tracked = is_ts & ~store_free
-            if bucket:
+            if self.bucket:
                 charged = tracked & charge
                 start, s["tokens"], s["bt"], s["walks"], err = bk.grant(
                     s["tokens"], s["bt"], torch.where(is_tl, port_tl, port_ts), v,
@@ -297,13 +299,46 @@ def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tens
             rr[lanes, rd] = new_reg
             s["rr"] = rr
         s["t_end"] = te
+        return err
+
+
+#: the plain version's carry entries behind OUT_FIELDS
+OUT_KEYS = ("t_end", "skips", "stall", "last_grant", "walks")
+
+
+def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
+                       lane_i: torch.Tensor, shares: torch.Tensor, *, bucket: bool,
+                       n_seg: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the full-stream scan: every lane steps through
+    its range in lockstep, each branch of run_segment computed for every
+    lane and kept where the lane's opcode takes it.  Returns ``out`` [L, 5]
+    and ``seg_out`` [n_seg, L, 5] (:data:`OUT_FIELDS`)."""
+    dev = code.device
+    n = lane_f.shape[0]
+    lo, hi, sh_lo, sh_n = lane_i.unbind(1)
+    lanes = PlainLanes(lane_f, shares, sh_lo, sh_n, bucket=bucket)
+    burst = lanes.f["burst"]
+    s = plain_state(burst)
+    walks_done = torch.zeros(n, dtype=torch.float64, device=dev)
+    li = torch.zeros(n, dtype=torch.float64, device=dev)   # segment-local index
+    seg = torch.zeros(n, dtype=torch.int64, device=dev)
+    err = torch.zeros(n, dtype=torch.int32, device=dev)
+    seg_out = torch.zeros((n_seg, n, len(OUT_FIELDS)), dtype=torch.float64, device=dev)
+    steps = int((hi - lo).max()) if n else 0
+    for k in range(steps):
+        pos = lo + k
+        act = (pos < hi) & (err == 0)
+        at = torch.where(act, pos, 0)
+        c, v = code[at], val[at]
+        err = lanes.step(s, c, v, li, act, err)
         li = torch.where(act, li + 1.0, li)
-        if any_end:               # ---- OP_END: emit the segment, reset -----
+        is_end = act & ((c & 7) == OP_END) if n_seg else None
+        if n_seg and bool(is_end.any()):   # ---- OP_END: emit, reset -----
             row = torch.stack([s[key] for key in OUT_KEYS], 1)
-            seg_out[seg[is_end], lanes[is_end]] = row[is_end]
+            seg_out[seg[is_end], lanes.lanes[is_end]] = row[is_end]
             seg = seg + is_end.to(torch.int64)
             walks_done = walks_done + torch.where(is_end, s["walks"], 0.0)
-            new = fresh()
+            new = plain_state(burst)
             for key in s:
                 mask = is_end[:, None] if s[key].dim() == 2 else is_end
                 s[key] = torch.where(mask, new[key], s[key])

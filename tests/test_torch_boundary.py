@@ -46,7 +46,10 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk, "
             "repro_torch.optim, repro_torch.training, repro_torch.checkpoint, "
             "repro_torch.data, repro_torch.core, repro_torch.multicore, "
-            "repro_torch.kernels.fastsim_scan\n"
+            "repro_torch.kernels.fastsim_scan, repro_torch.kernels.jitarb, "
+            "repro_torch.obs, repro_torch.workload, repro_torch.multicore.jitarb, "
+            "repro_torch.multicore.online, repro_torch.multicore.scheduler, "
+            "repro_torch.multicore.faults, repro_torch.serving.simbatch\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,

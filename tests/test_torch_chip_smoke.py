@@ -331,3 +331,58 @@ def test_partial_run_names_its_phases_in_the_last_line():
     assert full == {"ok": True, "device": {"platform": "gpu", "kind": "H100", "count": 1}}
     part = chip_smoke.result_line("H100", 1, chip_smoke.PARTIAL_PHASES)
     assert part == {**full, "phases": ["build", "simulate"]}
+
+
+def test_batcher_run_names_its_phases():
+    part = chip_smoke.result_line("H100", 1, chip_smoke.BATCHER_PHASES)
+    assert part["phases"] == ["build", "batcher"] and part["ok"] is True
+
+
+@pytest.mark.parametrize("variant", chip_smoke.BATCH_VARIANTS)
+def test_batch_chip_is_the_phase_12_case(variant):
+    from repro_torch.multicore import chip as chip_mod
+    chip = chip_smoke.batch_chip(chip_mod, variant, "numpy")
+    assert chip.n_cores == 4 and chip.bw_bytes_per_cycle == 32.0
+    assert chip.epoch_cycles == 1024.0 and chip.backend == "numpy"
+    if variant == "mixed":
+        assert tuple(c.design for c in chip.core_specs) == chip_smoke.BATCH_MIXED
+        assert chip.share_policy.name == "equal"
+    else:
+        assert chip.share_policy.name == "demand" and chip.homogeneous
+
+
+def test_program_ops_counts_the_steps_at_the_trace_mix():
+    """program_ops: lane blocks x 64 steps at the table's mean operations a
+    step (SCAN_OPS, every TL and TS a grant)."""
+    from repro_torch.core import GemmSpec
+    from repro_torch.core.tiling import ALG1_POLICY
+    from repro_torch.core.trace import gemm_trace
+    t = gemm_trace(GemmSpec("g", 32, 128, 128), ALG1_POLICY)
+    ops = chip_smoke.SCAN_OPS
+    per = (ops["tl"] * t.n_tl + ops["ts"] * t.n_ts + ops["mm"] * t.n_mm
+           + ops["grant"] * (t.n_tl + t.n_ts)) / len(t)
+    assert chip_smoke.program_ops([t], 10) == pytest.approx(10 * 64 * per)
+    assert chip_smoke.program_ops([t, t], 3) == pytest.approx(3 * 64 * per)
+
+
+def test_program_bound_reads_the_stats():
+    """program_bound: the inputs and outputs over the HBM rate, the steps'
+    operations over the fp64 peak, and the chain of the longest lane."""
+    import torch
+    from repro_torch.core import GemmSpec
+    from repro_torch.core.tiling import ALG1_POLICY
+    from repro_torch.core.trace import gemm_trace
+    t = gemm_trace(GemmSpec("g", 32, 128, 128), ALG1_POLICY)
+    args = [torch.zeros(4, dtype=torch.float64)] * 8 + [torch.zeros((1, 16))] \
+        + [torch.zeros(2, dtype=torch.int32)] * 3
+    stats = torch.tensor([[5.0, 7.0, 30.0, 0.0, 40.0, 12.0]], dtype=torch.float64)
+    b = chip_smoke.program_bound(args, stats, [t])
+    nbytes = 8 * 32 + 16 * 4 + 3 * 8 + 2 * 8 * 16 + 8 * 6
+    assert b["bytes_ms"] == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert b["operations_ms"] == pytest.approx(
+        chip_smoke.program_ops([t], 40.0) / chip_smoke.FP64_PEAK * 1e3)
+    assert b["serial_chain_ops"] == chip_smoke.CHAIN_OPS_PER_STEP * 64 * 12
+    assert b["latency_bound_ms"] == pytest.approx(
+        b["serial_chain_ops"] * chip_smoke.FP64_DEP_NS / 1e6)
+    assert b["lane_steps"] == 40 * 64
+    assert b["bound_ms"] == max(b["bytes_ms"], b["operations_ms"])
