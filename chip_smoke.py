@@ -128,9 +128,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      lane's, while the main process drives the kernels); then each
      kernel's device time on DLRM-2 x 8 designs (beside its plain version
      and the numpy lane) and at its main-path shape, its bound (bytes over
-     the HBM rate, fp64 operations over the fp64 peak), its serial chain,
-     and the host's share (lowering, analysis, packing, upload, readback;
-     the end-to-end sweeps timed on traces whose analysis is not cached).
+     the HBM rate, fp64 operations over the fp64 peak), its serial chain
+     (a packed lane's longest segment) and ns a step on it, ptxas's
+     registers and spill bytes, the main path's launches by path (shares
+     in shared or device memory, the exact-division flags), and the host's
+     share (lowering, analysis, packing, upload, readback; the end-to-end
+     sweeps timed on traces whose analysis is not cached).
      ``python3 chip_smoke.py simulate`` runs the build and this phase
      alone, and its last line says so ("phases": ["build", "simulate"]);
  12. the serving batcher (src/repro_torch/serving/simbatch.py over the
@@ -142,7 +145,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      against the port's numpy client and, on the inputs the main path
      gave the kernel, against its plain version (finish and admit epochs
      and the program's counters bit for bit; the plain versions on the
-     host's CPU, on worker processes at the lowest priority); qwen3-1.7b at full width (1 of 28 layers, ~0.65 M
+     host's CPU, one worker process a run at the lowest priority, started
+     at the head of the phase); qwen3-1.7b at full width (1 of 28
+     layers, ~0.65 M
      instructions a request), 4 and 8 requests, through the kernel, the
      incremental client on "cuda" (occupancy through _Batcher, and
      phase_aware, which the program does not take) and, at 4, the numpy
@@ -152,8 +157,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      arrival-rate sweep (x1, x0.5, x0.25 of 64 requests) as one launch of
      three CTAs, against the numpy client and its plain version; the
      kernel's row: the device time of the 4-request
-     full-width settle from its trace, its bound, the latency bound of its
-     dependent chain, and the program's rounds and blocks.
+     full-width settle from its trace (and an untraced rerun's host clock),
+     its bound, the latency bound of its dependent chain and ns a step on
+     the longest lane, ptxas's registers and spill bytes, the launches by
+     path, and the program's rounds and blocks.
      ``python3 chip_smoke.py batcher`` runs the build and this phase alone
      ("phases": ["build", "batcher"]).
 The line before the last is the card line, the one before it the kernels'
@@ -168,6 +175,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1966,6 +1974,19 @@ PREDICTION_SIM = (
     "same 72 pairs; lowering Table I 15-35 s. The card idles: 72 threads on 9 of 132 SMs.")
 
 
+PREDICTION_STEP = (
+    "the step redesigned (a TMA ring of the instruction stream, exact epoch and issue "
+    "products at power-of-two epochs, shares in shared memory, one CTA a packed segment): "
+    "row 6's main path (six FC layers packed x 8 designs, epoch bucket) 80-300 ms against "
+    "the previous step's 1,280.8, at 150-550 ns a step on its longest chain (DLRM-3's "
+    "532,480 steps; before: 1,259 ns a step over the whole packed lane), DLRM-2 x 8 "
+    "1.5-4.5 ms against 9.69; row 8's full-width settle (qwen3-1.7b, 1 layer, x 4) "
+    "1,500-5,000 ms against 11,810.8, 200-650 ns a step on its longest lane (before: "
+    "1,514). Levers: the "
+    "exact division 55-75% of the time, the ring 5-15%, the segment split 1.7-1.9x on row "
+    "6's main path only; both kernels without spills.")
+
+
 def sweep_schedule():
     """(shares, tail) of the bucket sweep's core (see SWEEP_DRAINS)."""
     return (tuple(CHIP["bw"] / (1 + sum(d > e for d in SWEEP_DRAINS))
@@ -2006,18 +2027,23 @@ def require_equal(what: str, got, want) -> None:
         raise RuntimeError(f"simulate: {what} differs from the numpy lane (first at {bad})")
 
 
-def scan_bound(traces, lanes_traces, out, charged: bool, lanes_bytes: int) -> dict:
+def scan_bound(traces, lanes_traces, out, charged: bool, lanes_bytes: int,
+               longest: int | None = None) -> dict:
     """The full-stream scan's bound: its columns (12 bytes an instruction),
     lane tables and results read or written once over the HBM rate, and the
     fp64 operations of each lane's trace (SCAN_OPS, the walk steps this run
-    took) over the fp64 peak; beside it the serial chain."""
+    took) over the fp64 peak; beside it the serial chain of the longest
+    independent chain (``longest`` steps: a packed lane's longest segment;
+    by default the longest lane)."""
     n_instr = sum(len(t) for t in traces)
     ops = sum(SCAN_OPS["tl"] * t.n_tl + SCAN_OPS["ts"] * t.n_ts + SCAN_OPS["mm"] * t.n_mm
               + SCAN_OPS["grant"] * (t.n_tl + (t.n_ts if charged else 0))
               for t in lanes_traces) + SCAN_OPS["walk"] * float(out[:, 4].sum())
     fields = bound_fields((12 * n_instr + lanes_bytes) / HBM_BYTES_PER_S * 1e3,
                           ops / FP64_PEAK * 1e3)
-    fields["serial_chain_ops"] = CHAIN_OPS_PER_STEP * max(len(t) for t in lanes_traces)
+    longest = max(len(t) for t in lanes_traces) if longest is None else longest
+    fields["serial_chain_ops"] = CHAIN_OPS_PER_STEP * longest
+    fields["longest_chain_steps"] = longest
     fields["lane_steps"] = sum(len(t) for t in lanes_traces)
     return fields
 
@@ -2047,12 +2073,66 @@ def kernel_ms(torch, fn, name: str, reps: int) -> tuple[float, str]:
 
 
 def timed_row(ms: float, timer: str, bound: dict) -> dict:
-    return {"ms": ms, "timer": timer, **bound,
-            "latency_bound_ms": bound["serial_chain_ops"] * FP64_DEP_NS / 1e6,
-            "lane_steps_per_s": bound["lane_steps"] / (ms / 1e3),
-            "ns_per_chain_op": ms * 1e6 / bound["serial_chain_ops"]}
+    row = {"ms": ms, "timer": timer, **bound,
+           "latency_bound_ms": bound["serial_chain_ops"] * FP64_DEP_NS / 1e6,
+           "lane_steps_per_s": bound["lane_steps"] / (ms / 1e3),
+           "ns_per_chain_op": ms * 1e6 / bound["serial_chain_ops"]}
+    if "longest_chain_steps" in bound:
+        row["ns_per_step"] = ms * 1e6 / bound["longest_chain_steps"]
+    return row
 
 
+def ptxas_label(mangled: str) -> str:
+    """A kernel's name and bool template arguments from its mangled name,
+    e.g. ``fastsim_scan_kernel<true>`` (the mangled name where none
+    parses)."""
+    for i, ch in enumerate(mangled):
+        if not ch.isdigit():
+            continue
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name = mangled[j:j + n]
+        if len(name) == n and name.isidentifier() and name.endswith("kernel"):
+            args = re.match(r"I((?:Lb[01]E)+)E", mangled[j + n:])
+            flags = re.findall(r"Lb([01])E", args.group(1)) if args else []
+            return name + (f"<{', '.join('true' if f == '1' else 'false' for f in flags)}>"
+                           if flags else "")
+    return mangled
+
+
+def ptxas_summary(report: str) -> dict:
+    """Each entry function of an ``-Xptxas -v`` report: its registers,
+    stack frame and spill bytes (under its mangled name where two share a
+    label)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = ptxas_label(m.group(1))
+            name = m.group(1) if name in out else name
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def path_counts(paths, fields) -> dict:
+    """A wrapper's launch-path counter as {"field=value ...": launches}."""
+    return {" ".join(f"{f}={v}" for f, v in zip(fields, key)): n for key, n in paths.items()}
+
+
+#: fields of kernels.fastsim_scan.launch_paths' keys, and of kernels.jitarb's
+SCAN_PATH_FIELDS = ("chains", "shares", "epoch_pow2", "issue_pow2")
+JITARB_PATH_FIELDS = ("shares", "issue_pow2")
 #: what ``python3 chip_smoke.py simulate`` runs (its last line names them)
 PARTIAL_PHASES = ("build", "simulate")
 SIM_WORKERS = 6                # processes of the numpy lane (the card's host has 8 cores)
@@ -2103,7 +2183,7 @@ def sim_plain(cols, bucket: bool | None = None, n_seg: int = 0):
     return out.cpu().numpy(), (seg.cpu().numpy() if n_seg else None), ms
 
 
-def simulate_phase(torch, card: str) -> list[dict]:
+def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
     """Phase 11: the RASA simulator on the card.  Table I x the 8 designs
     through the MM-only kernel (sweep_workload, backend "cuda") against the
     numpy lane, every pair's cycles, wl_skips, stall cycles and utilization
@@ -2128,6 +2208,8 @@ def simulate_phase(torch, card: str) -> list[dict]:
     from repro_torch.core.trace import gemm_trace
     from repro_torch.kernels import fastsim_scan as fsk
     print("prediction (written before the first run of phase 11): " + PREDICTION_SIM)
+    print("prediction (written before the redesigned step's first timed run): "
+          + PREDICTION_STEP)
     fixtures = ROOT / "tests" / "fixtures"
     fig5 = json.loads((fixtures / "fig5_runtime.json").read_text())
     fig7 = json.loads((fixtures / "fig7_batch.json").read_text())
@@ -2249,6 +2331,7 @@ def simulate_phase(torch, card: str) -> list[dict]:
         cores_cuda = clock("cores_cuda",
                            lambda: fastsim.run_cores(lanes, ccfg, cparams, backend="cuda"))
         main_launches = dict(fsk.launches)  # ---- the main path ends ----
+        main_paths = path_counts(fsk.launch_paths, SCAN_PATH_FIELDS)
         # the analysis alone: the share of table_i_cuda the host's dataflow takes
         clock("analysis_table_i", uncached(
             lambda: [fastsim._mm_analysis(t) for t in traces.values()]))
@@ -2297,6 +2380,8 @@ def simulate_phase(torch, card: str) -> list[dict]:
     require_equal("run_cores, 4 lanes", [timing_key(r) + (lg,) for r, lg in cores_cuda],
                   numpy["cores"][0][0])
     print(f"simulate: main path equal to the numpy lane; launches {main_launches}")
+    print("simulate: the main path's fastsim_scan launches by path: " + json.dumps(main_paths))
+    ptxas = {k: v for k, v in ptxas.get("fastsim", {}).items() if k.startswith("fastsim_scan")}
     print("simulate: Fig. 5 normalized runtime (Table I, cuda = numpy): " + json.dumps(
         {s.name: {n: r[n].cycles / r["BASE"].cycles for n in names}
          for s, r in zip(table, table_cuda)}))
@@ -2345,7 +2430,7 @@ def simulate_phase(torch, card: str) -> list[dict]:
     out, _ = scan(args, len(fc))
     main = timed_row(*main_ms(lambda: scan(args, len(fc))),
                      scan_bound([packed], [packed] * len(lanes_e), out.cpu().numpy(), True,
-                                lane_bytes))
+                                lane_bytes, longest=max(len(t) for t in fc)))
     main["numpy_ms"] = host["fc_epoch_numpy"] * 1e3
     rows["scan"]["main_path"] = main
 
@@ -2367,6 +2452,13 @@ def simulate_phase(torch, card: str) -> list[dict]:
     rows["mm_scan"]["main_path"] = main
     report["kernels"] = rows
     print(f"simulate: {json.dumps(report)} | {card}")
+    for key in ("scan", "mm_scan"):
+        for what, row in ((key, rows[key]), (f"{key} main path", rows[key]["main_path"])):
+            print(f"simulate: {what}: {row['ms']:.3f} ms, latency bound "
+                  f"{row['latency_bound_ms']:.3f} ms ({row['ms'] / row['latency_bound_ms']:.1f}x)"
+                  + (f", {row['ns_per_step']:.1f} ns a step on the longest chain "
+                     f"({row['longest_chain_steps']} steps)" if "ns_per_step" in row else "")
+                  + f" | {card}")
     works = {"scan": "DLRM-2 (8,448 instructions) x 8 designs, the chip's epoch schedule "
                      "(sweep layout, one launch); main_path: the six FC layers packed "
                      "(1,017,094 instructions a lane) x 8 designs, the same schedule",
@@ -2385,6 +2477,8 @@ def simulate_phase(torch, card: str) -> list[dict]:
              "latency_bound_ms": row["latency_bound_ms"],
              "ns_per_chain_op": row["ns_per_chain_op"],
              "lane_steps_per_s": row["lane_steps_per_s"], "main_path": row["main_path"],
+             **({"ns_per_step": row["ns_per_step"], "ptxas": ptxas, "paths": main_paths}
+                if key == "scan" else {}),
              **({"ms_port_model": row["ms_port_model"]} if "ms_port_model" in row else {}),
              "work": works[key]} for key, row in rows.items()]
 
@@ -2513,7 +2607,55 @@ def program_bound(args, stats, traces) -> dict:
     return fields
 
 
-def batcher_phase(torch, card: str) -> list[dict]:
+def batch_traffic(requests):
+    return [(r.arrival_epoch, r.specs) for r in requests]
+
+
+def batch_cases():
+    """Phase 12's (policy, variant) cases, their BATCH_N-request trace and
+    the rate sweep's variants."""
+    import dataclasses as dc
+    from repro_torch.serving.simbatch import synthetic_trace
+    cases = [(p, v) for v in BATCH_VARIANTS for p in BATCH_POLICIES]
+    base = synthetic_trace(SWEEP_N, **SWEEP_KW)
+    variants = [[dc.replace(r, arrival_epoch=int(r.arrival_epoch * f)) for r in base]
+                for f in RATE_FACTORS]
+    return cases, synthetic_trace(BATCH_N, **TRACE_KW), variants
+
+
+def start_batch_plain() -> tuple:
+    """Phase 12's plain runs: the program's plain version on the main
+    path's inputs of the BATCH_N-request cases (as run_batcher plans them on
+    a cuda chip) and of the rate sweep's launch, one spawned process a run
+    at the lowest priority, on the host's CPU (~0.7 ms an instruction step;
+    150-200 s a run on an H100 machine's host).  Returns the pool (leaving
+    its ``with`` block terminates it), the inputs by case and the pending
+    results."""
+    import multiprocessing
+    from repro_torch.multicore import chip as chip_mod
+    from repro_torch.multicore import jitarb
+    cases, trace, variants = batch_cases()
+    plain_in = {}
+    for p, v in cases:
+        plan, why = jitarb.plan_ex(batch_traffic(trace), batch_chip(chip_mod, v, "cuda"),
+                                   policy=p)
+        if plan is None:
+            raise RuntimeError(f"batcher: {p}/{v} outside the program's domain: {why}")
+        plain_in[f"{p}/{v}"] = jitarb._inputs([plan])
+    sweep_plans = jitarb.plan_many([batch_traffic(v) for v in variants],
+                                   chip_mod.ChipConfig(backend="cuda", **BATCH_CHIP))
+    if sweep_plans is None:
+        raise RuntimeError("batcher: the rate sweep fell outside the domain")
+    plain_in["sweep"] = jitarb._inputs(sweep_plans)
+    pool = multiprocessing.get_context("spawn").Pool(
+        len(plain_in), initializer=plain_worker_init,
+        initargs=(str(ROOT / "src"),))
+    results = {key: pool.apply_async(batch_plain, (tuple(a.cpu().numpy() for a in args), kw))
+               for key, (args, kw) in plain_in.items()}
+    return pool, plain_in, results
+
+
+def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
     """Phase 12: the serving batcher's whole-trace program on the card.  The
     kernel against its plain version (on worker processes, on the host's
     CPU) on the main path's inputs of the BATCH_N-request cases and of the
@@ -2539,6 +2681,8 @@ def batcher_phase(torch, card: str) -> list[dict]:
     from repro_torch.serving.simbatch import (report_from_finishes, run_batcher,
                                               synthetic_trace)
     print("prediction (written before the first run of phase 12): " + PREDICTION_BATCH)
+    print("prediction (written before the redesigned step's first timed run): "
+          + PREDICTION_STEP)
     host: dict = {}
 
     def clock(key, fn):
@@ -2549,48 +2693,19 @@ def batcher_phase(torch, card: str) -> list[dict]:
         print(f"batcher: {key} {host[key]:.3f} s", flush=True)
         return out
 
-    def traffic(requests):
-        return [(r.arrival_epoch, r.specs) for r in requests]
-
     def expect(what, got, want):
         if got != want:
             raise RuntimeError(f"batcher: {what}: the reports differ")
 
     cuda_chip = chip_mod.ChipConfig(backend="cuda", **BATCH_CHIP)
     np_chip = dc.replace(cuda_chip, backend="numpy")
-    cases = [(p, v) for v in BATCH_VARIANTS for p in BATCH_POLICIES]
-    trace = synthetic_trace(BATCH_N, **TRACE_KW)
-    base = synthetic_trace(SWEEP_N, **SWEEP_KW)
-    variants = [[dc.replace(r, arrival_epoch=int(r.arrival_epoch * f)) for r in base]
-                for f in RATE_FACTORS]
-    # the plain version's inputs: the main path's, those of the eight cases (as
-    # run_batcher plans them on a cuda chip) and of the sweep's launch
-    plain_in = {}
-    for p, v in cases:
-        plan, why = jitarb.plan_ex(traffic(trace), batch_chip(chip_mod, v, "cuda"), policy=p)
-        if plan is None:
-            raise RuntimeError(f"batcher: {p}/{v} outside the program's domain: {why}")
-        plain_in[f"{p}/{v}"] = jitarb._inputs([plan])
-    sweep_plans = jitarb.plan_many([traffic(v) for v in variants], cuda_chip)
-    if sweep_plans is None:
-        raise RuntimeError("batcher: the rate sweep fell outside the domain")
-    plain_in["sweep"] = jitarb._inputs(sweep_plans)
-    spawn = multiprocessing.get_context("spawn")
-    src = str(ROOT / "src")
-    pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=spawn, initializer=sim_worker_init,
-                               initargs=(src,))
-    # one process a plain run, at the lowest priority: it steps the program in
-    # PyTorch calls on the host's CPU (~0.7 ms an instruction step; 147-160 s a
-    # case of BATCH_N requests on an H100 machine's host), beside the numpy pool
-    # and the main path
-    plain_pool = ProcessPoolExecutor(len(plain_in), mp_context=spawn,
-                                     initializer=plain_worker_init, initargs=(src,))
+    cases, trace, variants = batch_cases()
+    plain_pool, plain_in, plain_res = start_batch_plain()
+    pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
     with pool, plain_pool:
         t_pool = time.perf_counter()
         futs = {
-            "plain": {key: plain_pool.submit(batch_plain,
-                                             tuple(a.cpu().numpy() for a in args), kw)
-                      for key, (args, kw) in plain_in.items()},
             "cases": {(p, v): pool.submit(batch_numpy, "trace", BATCH_N, p, v)
                       for p, v in cases},
             "full": {p: pool.submit(batch_numpy, "full", FULL_N_NUMPY, p)
@@ -2617,7 +2732,7 @@ def batcher_phase(torch, card: str) -> list[dict]:
         for n in (FULL_N_NUMPY, FULL_N):
             reqs = full4[:n]
             plan, why = clock(f"full{n}_planning", lambda: jitarb.plan_ex(
-                traffic(reqs), cuda_chip, policy="occupancy"))
+                batch_traffic(reqs), cuda_chip, policy="occupancy"))
             if plan is None:
                 raise RuntimeError(f"batcher: full width outside the domain: {why}")
             st: dict = {}
@@ -2656,20 +2771,22 @@ def batcher_phase(torch, card: str) -> list[dict]:
         clock("scale_warm", lambda: run_batcher(scale, cuda_chip, policy="fixed",
                                                 batch_size=1))
         scale_plan, _ = clock("scale_planning", lambda: jitarb.plan_ex(
-            traffic(scale), cuda_chip, policy="fixed"))
+            batch_traffic(scale), cuda_chip, policy="fixed"))
         scale_st: dict = {}
         clock("scale_settle", lambda: jitarb.finish_admit_times(scale_plan, scale_st))
         if scale_rep.jit_gate is not None:
             raise RuntimeError(f"batcher: the scale trace fell back ({scale_rep.jit_gate})")
         # 4. the rate sweep: one launch, three CTAs
         plans = clock("sweep_planning", lambda: jitarb.plan_many(
-            [traffic(v) for v in variants], cuda_chip))
+            [batch_traffic(v) for v in variants], cuda_chip))
         if plans is None:
             raise RuntimeError("batcher: the rate sweep fell outside the domain")
         before = kj.launches["jitarb"]
         sweep_fins = clock("sweep_settle", lambda: jitarb.finish_times_many(plans))
         sweep_launches = kj.launches["jitarb"] - before
         main_launches = {**kj.launches, **fsk.launches}   # ---- the main path ends ----
+        main_paths = {"jitarb": path_counts(kj.launch_paths, JITARB_PATH_FIELDS),
+                      "scan": path_counts(fsk.launch_paths, SCAN_PATH_FIELDS)}
         if sweep_launches != 1:
             raise RuntimeError(f"batcher: the sweep took {sweep_launches} launches")
         for key in ("jitarb", "scan", "mm_scan"):
@@ -2684,7 +2801,9 @@ def batcher_phase(torch, card: str) -> list[dict]:
             fin_k, adm_k, st_k = kj.jitarb_cuda(*args, **kw)
             torch.cuda.synchronize()
             kernel_case_ms[key] = event_ms(torch, lambda: kj.jitarb_cuda(*args, **kw), 1)
-            fin_p, adm_p, st_p, plain_ms[key] = futs["plain"][key].result()
+            t_wait = time.perf_counter()
+            fin_p, adm_p, st_p, plain_ms[key] = plain_res[key].get()
+            host["plain_wait"] = host.get("plain_wait", 0.0) + time.perf_counter() - t_wait
             err = max(float(np.abs(fin_k.cpu().numpy() - fin_p).max()),
                       float(np.abs(adm_k.cpu().numpy() - adm_p).max()))
             if err or not np.array_equal(st_k.cpu().numpy(), st_p):
@@ -2713,6 +2832,8 @@ def batcher_phase(torch, card: str) -> list[dict]:
         host["numpy_pool_wall"] = time.perf_counter() - t_pool
     print("batcher: every kernel report equals the numpy client's and the cuda "
           f"client's; launches {main_launches}; numpy client s " + json.dumps(numpy_s))
+    print("batcher: the main path's launches by path: " + json.dumps(main_paths))
+    ptxas = ptxas.get("jitarb", {})
 
     # 7. the row: the device time of the main path's full-width settle of
     # FULL_N_NUMPY requests, from its trace (events over a rerun where the
@@ -2723,10 +2844,16 @@ def batcher_phase(torch, card: str) -> list[dict]:
         ms, timer = (recs[0][1] - recs[0][0]) / 1e3, "profiler"
     else:
         ms, timer = event_ms(torch, lambda: kj.jitarb_cuda(*args, **kw), 1), "events"
-    _, _, st = kj.jitarb_cuda(*args, **kw)
+    # the same settle again, untraced: its host clock beside the traced one's
+    _, _, st = clock(f"full{FULL_N_NUMPY}_settle_untraced", lambda: kj.jitarb_cuda(*args, **kw))
     traces = [compiled_trace(tuple(dc.replace(s, name="") for s in r.specs), policy0)
               for r in full4[:FULL_N_NUMPY]]
     bound = program_bound(args, st.cpu(), traces)
+    longest = 64 * float(st.cpu()[0, 5])
+    ns_step = ms * 1e6 / longest
+    print(f"batcher: the full-width settle: {ms:.1f} ms, latency bound "
+          f"{bound['latency_bound_ms']:.1f} ms ({ms / bound['latency_bound_ms']:.1f}x), "
+          f"{ns_step:.1f} ns a step on the longest lane ({longest:.0f} steps) | {card}")
     report_st = {f: float(x) for f, x in zip(kj.STATS_FIELDS, st[0].tolist())}
     fixed_key = f"fixed/{BATCH_VARIANTS[0]}"
     # the program's own counters of the traced settle
@@ -2747,9 +2874,12 @@ def batcher_phase(torch, card: str) -> list[dict]:
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "latency_bound_ms": bound["latency_bound_ms"],
         "serial_chain_ops": bound["serial_chain_ops"], "lane_steps": bound["lane_steps"],
+        "ns_per_step": ns_step, "longest_lane_steps": longest, "ptxas": ptxas,
+        "paths": main_paths,
         "library_ms": None, "library_note": "none: no PyTorch call computes the program",
         "rounds": int(st[0, 1]), "blocks": int(st[0, 2]),
         "settle_s": {n: host[f"full{n}_settle"] for n in (FULL_N_NUMPY, FULL_N)},
+        "settle_untraced_s": host[f"full{FULL_N_NUMPY}_settle_untraced"],
         "planning_s": {n: host[f"full{n}_planning"] for n in (FULL_N_NUMPY, FULL_N)},
         "lowering_s": host["full_lowering"],
         "scale_s": {k: host[f"scale_{k}"] for k in ("cold", "warm", "planning", "settle")},
@@ -2786,19 +2916,20 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.3f} s")
-    for name, report in _build.reports.items():
-        print(f"build report {name}.cu (-Xptxas -v):")
-        print("\n".join(line for line in report.splitlines()
-                        if "registers" in line or "spill" in line or "entry" in line))
+    # each kernel's registers, stack and spill bytes from ptxas (the rows of
+    # phases 11 and 12 carry their kernels'); empty where nothing was built
+    ptxas = {name: ptxas_summary(report) for name, report in _build.reports.items()}
+    for name, summary in ptxas.items():
+        print(f"build report {name}.cu (-Xptxas -v): {json.dumps(summary)}")
 
     phase = lambda name: print(f"phase {name} at {time.perf_counter() - t_start:.1f} s")
     if sys.argv[1:] == ["simulate"]:          # the build and phase 11 alone
         phase("simulate")
-        kernels = simulate_phase(torch, card)
+        kernels = simulate_phase(torch, card, ptxas)
         return finish(torch, t_start, kernels, card, kind, phases=PARTIAL_PHASES)
     if sys.argv[1:] == ["batcher"]:           # the build and phase 12 alone
         phase("batcher")
-        kernels = batcher_phase(torch, card)
+        kernels = batcher_phase(torch, card, ptxas)
         return finish(torch, t_start, kernels, card, kind, phases=BATCHER_PHASES)
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
@@ -2847,9 +2978,9 @@ def main() -> int:
         trained[arch] = train(torch, rk, arch, card, rasa=arch == TRAIN_RASA)
     print("train: " + json.dumps(trained))
     phase("simulate")
-    simulated = simulate_phase(torch, card)
+    simulated = simulate_phase(torch, card, ptxas)
     phase("batcher")
-    batched = batcher_phase(torch, card)
+    batched = batcher_phase(torch, card, ptxas)
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])

@@ -1021,17 +1021,20 @@ def _trace_columns(trace: CompiledTrace) -> tuple[np.ndarray, np.ndarray]:
 
 def _lane_row(cfg: EngineConfig, params: StreamModelParams) -> list[float]:
     """One lane's design and bucket fields, in ``fsk.LANE_FIELDS`` order,
-    each computed as :func:`run_segment` computes it."""
+    each computed as :func:`run_segment` computes it, and the flags that let
+    the kernels divide by the epoch and the issue rate exactly by a product
+    (``fsk.pow2_or_inf``)."""
     store_free = params.store_ports is None
-    return [float(cfg.wl_cycles), float(cfg.fs_cycles), float(cfg.dr_cycles),
-            cfg.core_issue_width * (cfg.core_clock_hz / cfg.engine_clock_hz),
+    issue = cfg.core_issue_width * (cfg.core_clock_hz / cfg.engine_clock_hz)
+    return [float(cfg.wl_cycles), float(cfg.fs_cycles), float(cfg.dr_cycles), issue,
             float(cfg.load_latency), float(cfg.wlbp), float(cfg.wls),
             float(cfg.pipe), 1.0 / params.load_ports,
             1.0 / params.store_ports if not store_free else 0.0,
             float(store_free),
             float(params.charge_store_bytes and not params.is_port_model),
             float(params.epoch_cycles), float(params.tail_share),
-            float(params.burst_bytes), float(params.schedule_end)]
+            float(params.burst_bytes), float(params.schedule_end),
+            float(fsk.pow2_or_inf(params.epoch_cycles)), float(fsk.pow2_or_inf(issue))]
 
 
 def scan_inputs(traces: Sequence[CompiledTrace],

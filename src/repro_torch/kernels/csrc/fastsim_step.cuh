@@ -1,12 +1,28 @@
-// The RASA pipeline simulator's per-instruction step, shared by the scan
-// kernels (fastsim.cu) and the whole-trace arbitration kernel (jitarb.cu).
+// The RASA pipeline simulator's per-instruction step, and the staging ring
+// that feeds it, shared by the full-stream scan kernel (fastsim.cu) and the
+// whole-trace arbitration kernel (jitarb.cu).
 //
-// It transcribes the statements of core/fastsim.py::run_segment for one
-// instruction, in their order, with Python's max() (the first of equal
+// The step transcribes the statements of core/fastsim.py::run_segment for
+// one instruction, in their order, with Python's max() (the first of equal
 // values) and its float floor division (py_floordiv), in float64.  Every
 // source that includes it is built with -fmad=false (kernels/_build.py): a
 // product is rounded before the sum it feeds, as numpy rounds it, so one
 // transcription gives every kernel the numpy lane's bits.
+//
+// What bounds a step: its dependent chain through the carry (a few tens of
+// fp64 operations, branches and selects, each waiting on the last) on the
+// lane's one thread, which nothing else on the SM hides.  What the design
+// does about it:
+//  * the instruction stream reaches the chain from shared memory: a ring of
+//    kStages chunks of kChunk instructions a lane, filled by TMA bulk copies
+//    (cp.async.bulk, one mbarrier a stage) kStages - 1 chunks ahead of the
+//    step, so no step waits on device memory;
+//  * the bucket's epoch index t // E is floor(t * (1 / E)) when E is a power
+//    of two or inf (the lane's flag, set on the host): the same bits as
+//    Python's // for every finite t >= 0, without py_floordiv's fmod and
+//    division on the chain; the issue time i / issue is i * (1 / issue)
+//    likewise, else the division of the next step is taken before this one;
+//  * the kernels read the epoch shares from shared memory where they fit.
 
 #pragma once
 
@@ -19,7 +35,8 @@ namespace fastsim {
 constexpr int OP_TL = 0, OP_TS = 1, OP_MM = 2, OP_END = 4;
 constexpr int NREG = 8;
 // per-lane fields of lane_f (kernels/fastsim_scan.py, LANE_FIELDS)
-constexpr int kLaneF = 16;
+constexpr int kLaneF = 18;
+constexpr int kEpochPow2 = 16, kIssuePow2 = 17;   // the two exact-reciprocal flags
 // error codes (fastsim_scan.py raises on them)
 constexpr int ERR_NEVER_GRANTED = 1;   // the numpy lane's RuntimeError
 constexpr int ERR_NO_PROGRESS = 2;     // a walk that would never end
@@ -60,13 +77,20 @@ __device__ __forceinline__ double py_floordiv(double a, double b) {
 }
 
 struct Bucket {
-  const double* shares;
+  const double* shares;   // shared memory where the lane's shares fit, else global
   long long n_sh;
   double E, tail, burst, sched_end;
+  double inv_E;           // 1 / E, exact when pow2
+  bool pow2;              // E is a power of two or inf: t // E == floor(t * inv_E)
+
+  // t // E as Python computes it, for finite t >= 0
+  __device__ __forceinline__ double epoch_of(double t) const {
+    return pow2 ? floor(t * inv_E) : py_floordiv(t, E);
+  }
 
   // `shares[int(t // E)] if t // E < n_sh else tail`; fd = t // E
   __device__ __forceinline__ double share_at(double t, double& fd) const {
-    fd = py_floordiv(t, E);
+    fd = epoch_of(t);
     return fd < (double)n_sh ? shares[(long long)fd] : tail;
   }
 
@@ -166,27 +190,47 @@ struct Carry {
   }
 };
 
-// A lane's design and port fields (kernels/fastsim_scan.py, LANE_FIELDS 0-11)
+// A lane's design and port fields (kernels/fastsim_scan.py, LANE_FIELDS 0-11,
+// and the issue rate's flag)
 struct Design {
   double wl, fs, dr, issue, load_lat;
   bool wlbp, wls, pipe;
   double inv_load, inv_store;
   bool store_free, charge;
+  bool issue_pow2;    // issue is a power of two: i / issue == i * inv_issue
+  double inv_issue;
 
   __device__ __forceinline__ explicit Design(const double* f)
       : wl(f[0]), fs(f[1]), dr(f[2]), issue(f[3]), load_lat(f[4]), wlbp(f[5] != 0.0),
         wls(f[6] != 0.0), pipe(f[7] != 0.0), inv_load(f[8]), inv_store(f[9]),
-        store_free(f[10] != 0.0), charge(f[11] != 0.0) {}
+        store_free(f[10] != 0.0), charge(f[11] != 0.0), issue_pow2(f[kIssuePow2] != 0.0),
+        inv_issue(1.0 / f[3]) {}
+};
+
+// The issue times i / issue of a run of consecutive indices, from i0 on:
+// exact products where issue is a power of two; else each division is taken
+// one step ahead of the step that needs it.
+struct IssueClock {
+  double ahead;
+
+  __device__ __forceinline__ IssueClock(const Design& d, long long i0)
+      : ahead(d.issue_pow2 ? 0.0 : (double)i0 / d.issue) {}
+
+  __device__ __forceinline__ double at(const Design& d, long long i) {
+    if (d.issue_pow2) return (double)i * d.inv_issue;
+    const double t = ahead;
+    ahead = (double)(i + 1) / d.issue;
+    return t;
+  }
 };
 
 // One instruction of run_segment: `c` the packed code (kernels/fastsim_scan.py,
 // pack_code), `*vp` the tile bytes of a TL/TS or the valid rows of an MM (read
-// in the branch that needs it: loading it ahead of the branch made
-// fastsim_scan_kernel's long lanes ~3% slower on an H100), `t_issue` the
-// instruction's index over the issue rate.  kBucket: the token
-// bucket (else the port model: every request granted when its port frees).
-// Any opcode other than TL/TS/MM (NOP padding) leaves the carry as it is.
-// Returns 0, or the error code of a grant.
+// in the branch that needs it), `t_issue` the instruction's index over the
+// issue rate.  kBucket: the token bucket (else the port model: every request
+// granted when its port frees).  Any opcode other than TL/TS/MM (NOP padding,
+// OP_END in a lane that does not emit) leaves the carry as it is.  Returns 0,
+// or the error code of a grant.
 template <bool kBucket>
 __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_issue,
                                    const Design& d, const Bucket& bk) {
@@ -273,5 +317,131 @@ __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_
   s.have_prev = true;
   return 0;
 }
+
+// ---------------------------------------------------------------------------
+// The staging ring: one lane's instruction stream in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 256;    // instructions a chunk (a multiple of jitarb.cu's kBlock)
+constexpr int kStages = 3;     // chunks a ring holds: a chunk is filled two ahead
+// bytes of one ring in dynamic shared memory: codes, then values
+constexpr int kRingBytes = kStages * kChunk * (4 + 8);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One lane's ring of kStages chunks.  A chunk covers the column's positions
+// [g kChunk, (g + 1) kChunk); every copy starts and ends on a 16-byte edge of
+// the column (4 instructions), so a lane's first copy starts at lo rounded
+// down and reads up to 3 instructions before it.  The positions past the
+// column's last 16-byte edge are read by the thread itself: no copy reads
+// past the column.  One thread runs a ring: it issues the copies and waits
+// on the stages' barriers; `fills` counts every fill of the ring's life, so
+// the barriers' phases carry over from one run to the next.
+struct Ring {
+  int32_t* code_s;   // [kStages][kChunk], shared memory
+  double* val_s;     // [kStages][kChunk], shared memory
+  uint64_t* bar;     // [kStages], shared memory
+  unsigned fills;
+
+  // ring `k` of the dynamic shared memory at `base`, with its barriers
+  __device__ __forceinline__ Ring(unsigned char* base, int k, uint64_t* bars)
+      : code_s(reinterpret_cast<int32_t*>(base + (size_t)k * kRingBytes +
+                                          kStages * kChunk * 8)),
+        val_s(reinterpret_cast<double*>(base + (size_t)k * kRingBytes)),
+        bar(bars + k * kStages), fills(0) {}
+
+  // the barriers' set-up, once, before any fill (then a CTA barrier)
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar + s)), "r"(1));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // fill chunk g of the run [lo, hi) of a column of n positions
+  __device__ __forceinline__ void fill(const int32_t* code, const double* val, long long n,
+                                       long long lo, long long hi, long long g) {
+    const int s = fills % kStages;
+    const long long c0 = g * kChunk;
+    const long long a = lo > c0 ? (lo & ~3LL) : c0;
+    const long long e = (hi + 3) & ~3LL;
+    const long long b = e < c0 + kChunk ? e : c0 + kChunk;
+    const long long n16 = n & ~3LL;
+    const long long bb = b < n16 ? b : n16;   // the copies' end
+    int32_t* cs = code_s + s * kChunk;   // position p at cs[p - c0]
+    double* vs = val_s + s * kChunk;
+    for (long long p = bb; p < b && p < n; ++p) {   // past the column's last edge
+      cs[p - c0] = code[p];
+      vs[p - c0] = val[p];
+    }
+    const uint32_t n_copy = bb > a ? (uint32_t)(bb - a) : 0u;
+    const uint32_t mb = smem_addr(bar + s);
+    // the stage's last reads (generic proxy) come before the copies' writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
+                 "r"(n_copy * 12u)
+                 : "memory");
+    if (n_copy) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_addr(cs + (a - c0))),
+          "l"(code + a), "r"(n_copy * 4u), "r"(mb)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_addr(vs + (a - c0))),
+          "l"(val + a), "r"(n_copy * 8u), "r"(mb)
+          : "memory");
+    }
+    ++fills;
+  }
+
+  // wait for fill number k of the ring's life; returns its stage
+  __device__ __forceinline__ int wait(unsigned k) const {
+    const int s = k % kStages;
+    const uint32_t mb = smem_addr(bar + s), parity = (k / kStages) & 1u;
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(mb), "r"(parity)
+          : "memory");
+    }
+    return s;
+  }
+
+  // Run body(pos, code, &val) over the positions [lo, hi) of a column of n
+  // positions (code and val 16-byte aligned), in order, until it returns an
+  // error; returns it (or 0).  Every fill issued is waited for before the
+  // return, so the ring is free for the next run.
+  template <class Body>
+  __device__ __forceinline__ int run(const int32_t* code, const double* val, long long n,
+                                     long long lo, long long hi, Body&& body) {
+    if (lo >= hi) return 0;
+    const long long g0 = lo / kChunk, g1 = (hi - 1) / kChunk + 1;
+    unsigned next = fills;   // the next fill to wait for
+    long long gf = g0;       // the next chunk to fill
+    for (; gf < g1 && gf < g0 + kStages - 1; ++gf) fill(code, val, n, lo, hi, gf);
+    int err = 0;
+    for (long long g = g0; g < g1 && !err; ++g) {
+      const int s = wait(next++);
+      if (gf < g1) fill(code, val, n, lo, hi, gf++);
+      const long long c0 = g * kChunk;
+      const int k0 = (int)((lo > c0 ? lo : c0) - c0);
+      const int k1 = (int)((hi < c0 + kChunk ? hi : c0 + kChunk) - c0);
+      const int32_t* cs = code_s + s * kChunk;
+      const double* vs = val_s + s * kChunk;
+      for (int k = k0; k < k1; ++k) {
+        err = body(c0 + k, cs[k], vs + k);
+        if (err) break;
+      }
+    }
+    while (next != fills) wait(next++);   // an error left fills in flight
+    return err;
+  }
+};
 
 }  // namespace fastsim

@@ -14,7 +14,9 @@
 //    columns shared by all of them;
 //  * one warp per core lane (up to 8 cores; past that a warp takes several):
 //    the lane's token-bucket scan runs on the warp's first thread (the step
-//    of fastsim_step.cuh, as the scan kernels run it), the warp's other
+//    of fastsim_step.cuh, as the scan kernels run it), fed by the warp's own
+//    TMA staging ring (fastsim_step.cuh) whose chunks start on snapshot
+//    blocks, so a resume from a snapshot starts a chunk; the warp's other
 //    threads search the snapshot cache; lanes in different warps never wait
 //    on each other's branches;
 //  * the scalar loop on thread 0, between __syncthreads(): the boundary
@@ -24,16 +26,23 @@
 //    epoch's sum is one thread's sequential fold, bit for bit the host's;
 //  * the weight-sum window is a ring of 2 S epochs (slot = epoch mod 2 S):
 //    sliding it zeroes the epochs that enter, nothing moves;
-//  * state: the lanes' carry, queue heads and loop scalars in shared memory;
-//    the window, this round's and the last simulated shares, the snapshot
-//    cache ([C, NB + 1, 22] doubles, one carry every 64 instructions), the
-//    queues and the outputs in global memory (workspace from the wrapper).
+//  * state: the lanes' carry, queue heads and loop scalars in shared memory,
+//    and this round's C x S shares where they fit beside the warps' rings
+//    (else in global memory, the launcher's choice); the window, the last
+//    simulated shares, the snapshot cache ([C, NB + 1, 22] doubles, one
+//    carry every 64 instructions), the queues and the outputs in global
+//    memory (workspace from the wrapper).
 //
 // What bounds it: the dependent chain of the scan step (tens of dependent
 // fp64 operations an instruction) on one thread per lane, times the
 // instructions every relaxation round re-simulates; the bytes (the trace
 // columns, the snapshots) and the card's fp64 rate are far from the limit.
-// This version does nothing about that: it is right first.
+// The design keeps the chain fed and short: its instructions come from
+// shared memory through the ring, its shares from shared memory where they
+// fit, and the epoch index and issue time are exact products, not divisions
+// on the chain: the epoch is always a power of two (the planner takes no
+// other, the wrapper refuses one), the issue rate where lane_f flags it.  Nothing runs a lane's chain faster than one
+// thread: the program's rounds are sequential.
 //
 // Bit-equality with the numpy client (multicore/online.py) follows from the
 // reference program's argument and from one transcription of the step
@@ -72,6 +81,7 @@ struct Params {
   double* qsub;
   const int32_t* tid_of;
   int V, C, N, maxq, R, L, U, S, mode, kmax, max_rounds, n_real;
+  int sh_staged;   // this round's shares live in shared memory
   double E, budget, burst, min_share, lookahead;
   double* wsum;
   double* shares;
@@ -90,6 +100,7 @@ struct State {
   double w[kMaxC], nsh[kMaxC], tail[kMaxC], hi[kMaxC], m[kMaxC], lim[kMaxC];
   double cutoff[kMaxC], te_n[kMaxC], lg_n[kMaxC], lane_blocks[kMaxC];
   bool live[kMaxC], need[kMaxC], sim[kMaxC], reset[kMaxC];
+  unsigned fills[kMaxWarps];   // each warp's ring fills (its barriers' phases)
   double base, old_base, base2, nw, mxn, d, horizon, dec_done, t_dec;
   int n_r, n_b, n_arr, adm, action, conv, r, err_all, stop;
 };
@@ -101,7 +112,7 @@ __device__ __forceinline__ long long slot_of(double e, long long W) {
 __device__ __forceinline__ double dmax(double a, double b) { return b > a ? b : a; }
 __device__ __forceinline__ double dmin(double a, double b) { return b < a ? b : a; }
 
-__device__ void pack(const Carry& s, double* o) {
+__device__ __forceinline__ void pack(const Carry& s, double* o) {
 #pragma unroll
   for (int k = 0; k < NREG; ++k) o[k] = s.reg[k];
   o[8] = s.p_ff_start;
@@ -120,7 +131,7 @@ __device__ void pack(const Carry& s, double* o) {
   o[21] = s.bt;
 }
 
-__device__ void unpack(const double* o, Carry& s) {
+__device__ __forceinline__ void unpack(const double* o, Carry& s) {
 #pragma unroll
   for (int k = 0; k < NREG; ++k) s.reg[k] = o[k];
   s.p_ff_start = o[8];
@@ -328,9 +339,10 @@ __device__ void head(const Params& p, State& st, const double* arrival, const in
 }
 
 // The settle at boundary st.d on the whole CTA: slide the window, zero the
-// idle gap, then relax to the fixed point.
+// idle gap, then relax to the fixed point.  `shares` is this round's table
+// (shared or global memory), `smem` the warps' rings.
 __device__ void settle(const Params& p, State& st, double* ring, double* shares, double* p_sh,
-                       double* snaps) {
+                       double* snaps, unsigned char* smem, uint64_t* bars) {
   const int C = p.C, S = p.S, NB = p.L / kBlock;
   const long long W = 2LL * S;
   const double E = p.E, budget = p.budget, d = st.d;
@@ -449,18 +461,23 @@ __device__ void settle(const Params& p, State& st, double* ring, double* shares,
         unpack(lsn + (size_t)best * kSnap, s);
         const Design dz(p.lane_f + (size_t)l * kLaneF);
         const double nsh = st.nsh[l];
-        const Bucket bk{shares + (size_t)l * S, (long long)nsh, E, st.tail[l], p.burst, nsh * E};
-        const int32_t* code = p.code + (size_t)st.row[l] * p.L;
-        const double* val = p.val + (size_t)st.row[l] * p.L;
-        int err = 0;
-        for (int b = best; b < st.nblk[l] && !err; ++b) {
-          for (int j = 0; j < kBlock; ++j) {
-            const int i = b * kBlock + j;
-            err = step<true>(s, code[i], val + i, (double)i / dz.issue, dz, bk);
-            if (err) break;
-          }
-          if (!err) pack(s, snaps + ((size_t)l * (NB + 1) + b + 1) * kSnap);
-        }
+        const Bucket bk{shares + (size_t)l * S, (long long)nsh, E, st.tail[l], p.burst,
+                        nsh * E, 1.0 / E, true};
+        const size_t row = (size_t)st.row[l] * p.L;
+        double* lsnap = snaps + (size_t)l * (NB + 1) * kSnap;
+        const long long lo = (long long)best * kBlock, hi = (long long)st.nblk[l] * kBlock;
+        Ring rg(smem, warp, bars);
+        rg.fills = st.fills[warp];
+        IssueClock clk(dz, lo);
+        // a snapshot after every block; the blocks run whole (nblk * kBlock <= L)
+        const int err = rg.run(p.code + row, p.val + row, p.L, lo, hi,
+                               [&](long long i, int c, const double* vp) {
+                                 const int e = step<true>(s, c, vp, clk.at(dz, i), dz, bk);
+                                 if (!e && (i + 1) % kBlock == 0)
+                                   pack(s, lsnap + (size_t)((i + 1) / kBlock) * kSnap);
+                                 return e;
+                               });
+        st.fills[warp] = rg.fills;
         st.te_n[l] = s.t_end;
         st.lg_n[l] = s.last_grant;
         st.err[l] = err;
@@ -506,9 +523,10 @@ __device__ void settle(const Params& p, State& st, double* ring, double* shares,
   __syncthreads();
 }
 
-// at most 256 threads a CTA, so that the scan step keeps its carry in
-// registers (up to 255 a thread) instead of spilling it
-__global__ void __launch_bounds__(32 * kMaxWarps) jitarb_kernel(Params p) {
+// at most 256 threads a CTA, and one CTA an SM: ptxas may then give a thread
+// up to 255 registers, and the scan step keeps its carry in them (with the
+// thread count alone it stops at 128 and spills)
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) jitarb_kernel(Params p) {
   const int v = blockIdx.x;
   const int tx = threadIdx.x, nth = blockDim.x;
   const int C = p.C, N = p.N, S = p.S, maxq = p.maxq, NB = p.L / kBlock;
@@ -519,7 +537,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps) jitarb_kernel(Params p) {
   int32_t* qidx = p.qidx + (size_t)v * C * maxq;
   double* qsub = p.qsub + (size_t)v * C * maxq;
   double* ring = p.wsum + (size_t)v * W;
-  double* shares = p.shares + (size_t)v * C * S;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bars[kMaxWarps * kStages];
+  // this round's shares: after the warps' rings where they fit
+  double* shares = p.sh_staged
+                       ? reinterpret_cast<double*>(smem + (size_t)(nth >> 5) * kRingBytes)
+                       : p.shares + (size_t)v * C * S;
   double* p_sh = p.p_sh + (size_t)v * C * S;
   double* snaps = p.snaps + (size_t)v * C * (NB + 1) * kSnap;
   double* finish = p.finish + (size_t)v * (N + 1);
@@ -544,6 +567,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) jitarb_kernel(Params p) {
     st.reset[l] = true;
     st.lane_blocks[l] = 0.0;
   }
+  if ((tx & 31) == 0) {
+    Ring(smem, tx >> 5, bars).init();
+    st.fills[tx >> 5] = 0;
+  }
   if (tx == 0) {
     st.base = 0.0;
     st.nw = 0.0;
@@ -566,7 +593,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) jitarb_kernel(Params p) {
     if (action == ACT_START) {
       reset_snaps(st, snaps, C, NB, p.burst);
       __syncthreads();
-      settle(p, st, ring, shares, p_sh, snaps);
+      settle(p, st, ring, shares, p_sh, snaps, smem, bars);
       if (st.err_all) break;
       if (tx == 0)
         for (int l = 0; l < C; ++l)
@@ -590,6 +617,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps) jitarb_kernel(Params p) {
   }
 }
 
+// the warps of a CTA for C cores: one a core, at least 4, at most kMaxWarps
+int warps_for(int C) { return C < 4 ? 4 : (C > kMaxWarps ? kMaxWarps : C); }
+
+// doubles of shares that fit in a CTA's shared memory beside the rings of
+// its warps for C cores (< 0: a CUDA error)
+long long share_slots(int C) {
+  int dev, optin = 0;
+  cudaError_t r = cudaGetDevice(&dev);
+  if (r == cudaSuccess)
+    r = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes a;
+  if (r == cudaSuccess) r = cudaFuncGetAttributes(&a, jitarb_kernel);
+  if (r != cudaSuccess) return -(long long)r;
+  const long long free = (long long)optin - (long long)a.sharedSizeBytes -
+                         (long long)warps_for(C) * kRingBytes;
+  return free > 0 ? free / (long long)sizeof(double) : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -597,6 +642,8 @@ extern "C" {
 // One launch of the program: one CTA per variant (V), one warp per core (C
 // <= 32).  Inputs and workspace as kernels/jitarb.py documents them; qidx and
 // qsub are the variants' own queues (the admission step appends to them).
+// E is a power of two or inf (t // E == floor(t * (1 / E))).  *sh_staged gets 1 where this round's
+// C x S shares live in shared memory, 0 where in the workspace `shares`.
 // Returns the launch's cudaError_t.
 int jitarb_launch(const void* code, const void* val, const void* tr_len, const void* t2l,
                   const void* wt, const void* est, const void* lane_f, const void* qtail0,
@@ -604,9 +651,13 @@ int jitarb_launch(const void* code, const void* val, const void* tr_len, const v
                   int N, int maxq, int R, int L, int U, int S, int mode, int kmax,
                   int max_rounds, int n_real, double E, double budget, double burst,
                   double min_share, double lookahead, void* wsum, void* shares, void* p_sh,
-                  void* snaps, void* finish, void* adm, void* stats, void* stream) {
+                  void* snaps, void* finish, void* adm, void* stats, int* sh_staged,
+                  void* stream) {
+  *sh_staged = 0;
   if (V <= 0) return 0;
   if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  const long long slots = share_slots(C);
+  if (slots < 0) return (int)-slots;
   Params p;
   p.code = static_cast<const int32_t*>(code);
   p.val = static_cast<const double*>(val);
@@ -632,6 +683,7 @@ int jitarb_launch(const void* code, const void* val, const void* tr_len, const v
   p.kmax = kmax;
   p.max_rounds = max_rounds;
   p.n_real = n_real;
+  p.sh_staged = (long long)C * S <= slots;
   p.E = E;
   p.budget = budget;
   p.burst = burst;
@@ -644,11 +696,22 @@ int jitarb_launch(const void* code, const void* val, const void* tr_len, const v
   p.finish = static_cast<double*>(finish);
   p.adm = static_cast<double*>(adm);
   p.stats = static_cast<double*>(stats);
-  const int warps = C < 4 ? 4 : (C > kMaxWarps ? kMaxWarps : C);
-  const int threads = 32 * warps;
-  jitarb_kernel<<<V, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const int warps = warps_for(C);
+  const size_t smem = (size_t)warps * kRingBytes +
+                      (p.sh_staged ? (size_t)C * S * sizeof(double) : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t r = cudaFuncSetAttribute(
+        jitarb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (r != cudaSuccess) return (int)r;
+  }
+  jitarb_kernel<<<V, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  *sh_staged = p.sh_staged;
   return (int)cudaGetLastError();
 }
+
+// the most doubles of shares (C x S) that a launch for C cores keeps in
+// shared memory, or the negated cudaError_t of the query
+long long jitarb_share_capacity(int C) { return share_slots(C); }
 
 const char* jitarb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -21,8 +21,10 @@ The columns (built by :mod:`repro_torch.core.fastsim`):
 - full stream: ``code`` int32 per instruction, :func:`pack_code` (opcode,
   the three register ids, the WLBP reuse bit); ``val`` float64, the tile
   bytes of a TL/TS and the valid rows (``tm``) of an MM; ``lane_f`` float64
-  ``[L, 16]`` in :data:`LANE_FIELDS` order; ``lane_i`` int64 ``[L, 4]``:
-  the lane's trace range ``[lo, hi)`` and its shares' range in ``shares``;
+  ``[L, 18]`` in :data:`LANE_FIELDS` order (the last two: the flags of
+  :func:`pow2_or_inf` for the epoch and the issue rate); ``lane_i`` int64
+  ``[L, 4]``: the lane's trace range ``[lo, hi)`` and its shares' range in
+  ``shares``;
 - MM-only: ``code`` int32 per MM row, :func:`pack_mm_code`; ``val`` float64
   ``[rows, 6]`` (:data:`MM_VAL_FIELDS`); ``lane_f`` ``[L, 6]``
   (:data:`MM_LANE_FIELDS`); ``lane_rows`` int64 ``[L, 2]``.
@@ -34,7 +36,10 @@ that the bucket can never grant raises the numpy lane's ``RuntimeError``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import math
+import sys
 
 import numpy as np
 import torch
@@ -45,11 +50,16 @@ from . import _build
 KERNEL_NAMES = {"scan": "fastsim_scan_kernel", "mm_scan": "fastsim_mm_kernel"}
 #: launches counted where the wrappers launch their kernels
 launches = {key: 0 for key in KERNEL_NAMES}
+#: the full-stream launches by path: (chains, where the shares were read --
+#: "shared", "global", "mixed" or "none" under the port model --, the
+#: epoch's and the issue rate's exact-division flags over the lanes --
+#: "all", "none" or "some")
+launch_paths: collections.Counter = collections.Counter()
 
 #: fields of a full-stream lane (csrc/fastsim.cu reads them in this order)
 LANE_FIELDS = ("wl", "fs", "dr", "issue", "load_lat", "wlbp", "wls", "pipe",
                "inv_load", "inv_store", "store_free", "charge", "epoch",
-               "tail", "burst", "sched_end")
+               "tail", "burst", "sched_end", "epoch_pow2", "issue_pow2")
 #: fields of an MM-only lane, and the doubles of an MM row
 MM_LANE_FIELDS = ("wl", "fs", "dr", "wlbp", "wls", "pipe")
 MM_VAL_FIELDS = ("a_const", "b_const", "c_const", "tm", "t_issue", "ts_issue")
@@ -60,11 +70,46 @@ OUT_FIELDS = ("t_end", "wl_skips", "bw_stall", "last_grant", "walks")
 OP_TL, OP_TS, OP_MM, OP_END = 0, 1, 2, 4
 NUM_TREGS = 8
 ERR_NEVER_GRANTED, ERR_NO_PROGRESS = 1, 2
+# a lane's error slot before the kernel: no chain has failed (csrc/fastsim.cu
+# keeps the least of (chain order * 4 + code) over a lane's chains)
+_NO_ERROR = 2**31 - 1
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    launch_paths.clear()
+
+
+def pow2_or_inf(x: float) -> bool:
+    """Whether ``x`` is +inf or a normal power of two: then ``t / x`` and
+    ``t * (1 / x)`` are the same value for every t, and for finite t >= 0
+    Python's ``t // x`` is ``floor(t * (1 / x))`` bit for bit (the kernels
+    take the product where this flag is set)."""
+    x = float(x)
+    return x == math.inf or (sys.float_info.min <= x < math.inf and math.frexp(x)[0] == 0.5)
+
+
+def chain_table(ranges: np.ndarray, markers: np.ndarray | None) -> np.ndarray:
+    """The full-stream kernel's chains, one CTA each, int64 ``[n, 4]``:
+    (lane, lo, hi, segment).  ``ranges`` [L, 2] are the lanes' ``[lo, hi)``;
+    ``markers`` the sorted positions of the ``OP_END`` markers in the
+    columns, or None where the lanes do not emit.  A lane without markers
+    is one chain with segment -1 (it writes the lane's row); a packed lane
+    is its segments (the positions before each marker, segment k writing
+    row k) and its trailing part after the last marker (segment -1)."""
+    ranges = np.asarray(ranges, dtype=np.int64).reshape(-1, 2)
+    if markers is None:
+        lanes = np.arange(len(ranges), dtype=np.int64)
+        return np.stack([lanes, ranges[:, 0], ranges[:, 1], np.full_like(lanes, -1)], 1)
+    markers = np.asarray(markers, dtype=np.int64)
+    rows = []
+    for lane, (lo, hi) in enumerate(ranges.tolist()):
+        ends = markers[np.searchsorted(markers, lo):np.searchsorted(markers, hi)].tolist()
+        starts = [lo] + [e + 1 for e in ends]
+        for k, (a, b) in enumerate(zip(starts, ends + [hi])):
+            rows.append((lane, a, b, k if k < len(ends) else -1))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 4)
 
 
 def pack_code(opcode, r_dst, r_a, r_b, reusable) -> np.ndarray:
@@ -84,6 +129,13 @@ def pack_mm_code(c, a, b, a_dyn, b_dyn, c_dyn, reusable, ts_mask) -> np.ndarray:
     for k, bit in enumerate(bits):
         code = code | bit << (12 + k)
     return code.astype(np.int32)
+
+
+def _lane_errors(slots: torch.Tensor) -> torch.Tensor:
+    """Each lane's error code from the kernel's slots (the least of its
+    failing chains' order * 4 + code): its first failing chain's code, the
+    error the sequential lane stopped at; 0 where no chain failed."""
+    return torch.where(slots == _NO_ERROR, 0, slots & 3)
 
 
 def _raise_on(err: torch.Tensor) -> None:
@@ -302,10 +354,6 @@ class PlainLanes:
         return err
 
 
-#: the plain version's carry entries behind OUT_FIELDS
-OUT_KEYS = ("t_end", "skips", "stall", "last_grant", "walks")
-
-
 def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
                        lane_i: torch.Tensor, shares: torch.Tensor, *, bucket: bool,
                        n_seg: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -419,7 +467,9 @@ def _lib():
     lib = _build.load("fastsim")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fastsim_scan.argtypes = [i, i, p, p, p, p, p, i, p, p, p, p]
+        ll = ctypes.c_longlong
+        lib.fastsim_scan.argtypes = [i, p, p, ll, p, p, p, p, i, i, ll, p, p, p,
+                                     ctypes.POINTER(i), p]
         lib.fastsim_scan.restype = i
         lib.fastsim_mm_scan.argtypes = [p, p, p, p, i, p, p]
         lib.fastsim_mm_scan.restype = i
@@ -447,14 +497,26 @@ def _check_ranges(what: str, ranges: torch.Tensor, length: int) -> None:
         raise ValueError(f"{what}: a lane's range lies outside [0, {length}]")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    edge (the kernel's bulk copies read 16-byte pieces from the start)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _spread(flags: np.ndarray) -> str:
+    return "all" if flags.all() else ("none" if not flags.any() else "some")
+
+
 def fastsim_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
                       lane_i: torch.Tensor, shares: torch.Tensor, *, bucket: bool,
                       n_seg: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The full-stream scan through ``fastsim_scan_kernel``, on the current
-    stream, one thread per lane.  Raises on a CPU tensor, on lanes
-    outside the columns, on register ids outside the register file, on more
-    ``OP_END`` markers than ``n_seg`` rows, and on a lane the bucket can
-    never grant."""
+    stream: one CTA per chain of :func:`chain_table` (a lane, or with
+    ``n_seg`` each packed segment of a lane).  Raises on a CPU tensor, on
+    lanes outside the columns, on register ids outside the register file,
+    on more ``OP_END`` markers than ``n_seg`` rows, and on a lane the bucket
+    can never grant.  Columns whose data does not start on a 16-byte edge
+    are copied first."""
     what = "fastsim_scan"
     dev = _check_tensors(what, dict(code=code, val=val, lane_f=lane_f, lane_i=lane_i,
                                     shares=shares),
@@ -473,26 +535,42 @@ def fastsim_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tenso
     regs = torch.stack([(code >> s) & 15 for s in (4, 8, 12)])
     if code.numel() and int(regs.max()) >= NUM_TREGS:
         raise ValueError(f"{what}: register ids outside [0, {NUM_TREGS})")
-    if n_seg and n and code.numel():
-        ends = torch.cumsum(((code & 7) == OP_END).to(torch.int64), 0)
-        ends = torch.cat([ends.new_zeros(1), ends])
-        if int((ends[lane_i[:, 1]] - ends[lane_i[:, 0]]).max()) > n_seg:
+    lanes = lane_i.cpu().numpy()
+    markers = None
+    if n_seg:
+        markers = torch.nonzero((code & 7) == OP_END).flatten().cpu().numpy()
+        per_lane = (np.searchsorted(markers, lanes[:, 1])
+                    - np.searchsorted(markers, lanes[:, 0]))
+        if n and int(per_lane.max()) > n_seg:
             raise ValueError(f"{what}: a lane has more OP_END markers than n_seg={n_seg}")
-    out = torch.empty((n, len(OUT_FIELDS)), dtype=torch.float64, device=dev)
+    chains = chain_table(lanes[:, :2], markers)
+    out = torch.zeros((n, len(OUT_FIELDS)), dtype=torch.float64, device=dev)
     seg_out = torch.zeros((max(n_seg, 1), n, len(OUT_FIELDS)), dtype=torch.float64,
                           device=dev)
-    err = torch.empty(n, dtype=torch.int32, device=dev)
+    err = torch.full((n,), _NO_ERROR, dtype=torch.int32, device=dev)
     if n == 0:
         return out, seg_out[:n_seg]
+    code, val = _aligned(code), _aligned(val)
+    chains_t = torch.as_tensor(chains, device=dev)
     lib = _lib()
+    slots = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fastsim_scan(int(bucket), int(n_seg > 0), code.data_ptr(), val.data_ptr(),
-                              lane_f.data_ptr(), lane_i.data_ptr(), shares.data_ptr(), n,
-                              out.data_ptr(), seg_out.data_ptr(), err.data_ptr(), stream)
+        rc = lib.fastsim_scan(int(bucket), code.data_ptr(), val.data_ptr(), code.numel(),
+                              lane_f.data_ptr(), lane_i.data_ptr(), shares.data_ptr(),
+                              chains_t.data_ptr(), len(chains), n, int(lanes[:, 3].max()),
+                              out.data_ptr(), seg_out.data_ptr(), err.data_ptr(),
+                              ctypes.byref(slots), stream)
     _build.raise_if(rc, lib.fastsim_error_string, "fastsim_scan launch")
     launches["scan"] += 1
-    _raise_on(err)
+    f = lane_f.cpu().numpy()
+    staged = lanes[:, 3] <= slots.value
+    launch_paths[(len(chains),
+                  "none" if not bucket else {"all": "shared", "none": "global",
+                                             "some": "mixed"}[_spread(staged)],
+                  _spread(f[:, LANE_FIELDS.index("epoch_pow2")] != 0),
+                  _spread(f[:, LANE_FIELDS.index("issue_pow2")] != 0))] += 1
+    _raise_on(_lane_errors(err))
     return out, seg_out[:n_seg]
 
 

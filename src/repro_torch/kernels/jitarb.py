@@ -20,9 +20,9 @@ The inputs (built by ``repro_torch.multicore.jitarb``):
   MM), ``tr_len`` int32 ``[R]``; ``t2l`` int32 ``[U, C]`` the row of each
   (request shape, core), ``wt`` and ``est`` float64 ``[U, C]`` its span
   weight and its unthrottled cost estimate;
-- the cores: ``lane_f`` float64 ``[C, 16]`` (``fastsim_scan.LANE_FIELDS``:
-  the design, the ports, the epoch and the burst) and ``qtail0`` int32
-  ``[C]``;
+- the cores: ``lane_f`` float64 ``[C, 18]`` (``fastsim_scan.LANE_FIELDS``:
+  the design, the ports, the epoch, the burst and the exact-division
+  flags) and ``qtail0`` int32 ``[C]``;
 - per variant: ``arrival`` float64 ``[V, N]`` (sorted, padded with inf),
   ``qidx`` int32 / ``qsub`` float64 ``[V, C, maxq]`` (the queues' prefill,
   ``fixed`` admission), ``tid_of`` int32 ``[V, N]`` (the shape of each
@@ -39,19 +39,25 @@ the kernel for tensors on the card (or raises).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
 import torch
 
 from . import _build
-from .fastsim_scan import (CARRY_KEYS, LANE_FIELDS, NUM_TREGS, PlainLanes, _check_tensors,
-                           plain_state)
+from .fastsim_scan import (CARRY_KEYS, LANE_FIELDS, NUM_TREGS, PlainLanes, _aligned,
+                           _check_tensors, _spread, plain_state, pow2_or_inf)
 
 #: the entry point's device kernel, as named in csrc/jitarb.cu
 KERNEL_NAMES = {"jitarb": "jitarb_kernel"}
 #: launches counted where the wrapper launches its kernel
 launches = {key: 0 for key in KERNEL_NAMES}
+#: launches by path: (where the round's shares lived -- "shared" or
+#: "global" --, the issue rate's exact-division flag over the cores --
+#: "all", "none" or "some"); the epoch's is always set (jitarb_cuda refuses
+#: an epoch that is not a power of two)
+launch_paths: collections.Counter = collections.Counter()
 
 #: admission policies the program replays (csrc/jitarb.cu's mode codes)
 MODES = ("fixed", "occupancy", "bandwidth", "predicted")
@@ -81,6 +87,7 @@ _ERRORS = {
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    launch_paths.clear()
 
 
 def raise_on(stats: torch.Tensor) -> None:
@@ -486,12 +493,25 @@ def _lib():
     lib = _build.load("jitarb")
     if not getattr(lib, "_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.jitarb_launch.argtypes = [p] * 12 + [i] * 12 + [d] * 5 + [p] * 7 + [p]
+        lib.jitarb_launch.argtypes = ([p] * 12 + [i] * 12 + [d] * 5 + [p] * 7
+                                      + [ctypes.POINTER(i), p])
         lib.jitarb_launch.restype = i
+        lib.jitarb_share_capacity.argtypes = [i]
+        lib.jitarb_share_capacity.restype = ctypes.c_longlong
         lib.jitarb_error_string.argtypes = [i]
         lib.jitarb_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def share_capacity(cores: int) -> int:
+    """The most shares (cores x S doubles) a launch for ``cores`` keeps in
+    shared memory on the current card; a larger window's shares live in
+    device memory."""
+    lib = _lib()
+    got = int(lib.jitarb_share_capacity(int(cores)))
+    _build.raise_if(-got if got < 0 else 0, lib.jitarb_error_string, "jitarb_share_capacity")
+    return got
 
 
 def jitarb_cuda(code, val, tr_len, t2l, wt, est, lane_f, qtail0, arrival, qidx, qsub, tid_of,
@@ -499,8 +519,13 @@ def jitarb_cuda(code, val, tr_len, t2l, wt, est, lane_f, qtail0, arrival, qidx, 
                 max_rounds) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The program through ``jitarb_kernel``, on the current stream: one CTA
     per variant, one warp per core.  Raises on a CPU tensor, on shapes that
-    disagree, and on an error a variant reports."""
+    disagree, and on an error a variant reports.  A trace table whose data
+    does not start on a 16-byte edge is copied first.  ``E`` must be a power
+    of two or inf, as the planner makes it (the kernel's epoch index is
+    ``floor(t * (1 / E))``)."""
     what = "jitarb"
+    if not pow2_or_inf(E):
+        raise ValueError(f"{what}: the epoch E={E} is not a power of two")
     tensors = dict(code=code, val=val, tr_len=tr_len, t2l=t2l, wt=wt, est=est, lane_f=lane_f,
                    qtail0=qtail0, arrival=arrival, qidx=qidx, qsub=qsub, tid_of=tid_of)
     dev = _check_tensors(what, tensors, _DTYPES)
@@ -531,7 +556,9 @@ def jitarb_cuda(code, val, tr_len, t2l, wt, est, lane_f, qtail0, arrival, qidx, 
     snaps = torch.empty((V, C, nb + 1, len(SNAP_FIELDS)), **f64)
     q_idx = qidx.clone()
     q_sub = qsub.clone()
+    code, val = _aligned(code), _aligned(val)
     lib = _lib()
+    staged = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jitarb_launch(
@@ -541,9 +568,12 @@ def jitarb_cuda(code, val, tr_len, t2l, wt, est, lane_f, qtail0, arrival, qidx, 
             V, C, N, maxq, R, L, U, sc["S"], sc["mode"], sc["kmax"], sc["max_rounds"],
             sc["n_real"], sc["E"], sc["budget"], sc["burst"], sc["min_share"],
             sc["lookahead"], wsum.data_ptr(), shares.data_ptr(), p_sh.data_ptr(),
-            snaps.data_ptr(), finish.data_ptr(), adm.data_ptr(), stats.data_ptr(), stream)
+            snaps.data_ptr(), finish.data_ptr(), adm.data_ptr(), stats.data_ptr(),
+            ctypes.byref(staged), stream)
     _build.raise_if(rc, lib.jitarb_error_string, "jitarb launch")
     launches["jitarb"] += 1
+    issue_pow2 = lane_f[:, LANE_FIELDS.index("issue_pow2")].cpu().numpy() != 0
+    launch_paths[("shared" if staged.value else "global", _spread(issue_pow2))] += 1
     raise_on(stats.cpu())
     return finish[:, :N], adm[:, :N], stats
 

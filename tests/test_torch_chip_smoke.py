@@ -386,3 +386,70 @@ def test_program_bound_reads_the_stats():
         b["serial_chain_ops"] * chip_smoke.FP64_DEP_NS / 1e6)
     assert b["lane_steps"] == 40 * 64
     assert b["bound_ms"] == max(b["bytes_ms"], b["operations_ms"])
+
+
+REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1c39dd99_10_fastsim_cu_4afe5d5419\
+fastsim_scan_kernelILb1EEEvPKiPKdxS4_PKxS4_S6_iiPdS7_Pi' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__1c39dd99_10_fastsim_cu_4afe5d5419\
+fastsim_scan_kernelILb1EEEvPKiPKdxS4_PKxS4_S6_iiPdS7_Pi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__d005d734_9_jitarb_cu_af8ec1c1\
+13jitarb_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__d005d734_9_jitarb_cu_af8ec1c1\
+13jitarb_kernelENS_6ParamsE
+    1776 bytes stack frame, 308 bytes spill stores, 792 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 1776 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN43_GLOBAL__N__026d5794_10_fastsim_cu_4afe5d5419fastsim_scan_kernelILb1ELb0EEEvPKi",
+     "fastsim_scan_kernel<true, false>"),
+    ("_ZN43_GLOBAL__N__1c39dd99_10_fastsim_cu_4afe5d5419fastsim_scan_kernelILb0EEEvPKiPKdx",
+     "fastsim_scan_kernel<false>"),
+    # a name whose length prefix follows a hex digit of the namespace hash
+    ("_ZN41_GLOBAL__N__d005d734_9_jitarb_cu_af8ec1c113jitarb_kernelENS_6ParamsE",
+     "jitarb_kernel"),
+    ("_ZN43_GLOBAL__N__026d5794_10_fastsim_cu_4afe5d5417fastsim_mm_kernelEPKiPKdS3_PKxiPd",
+     "fastsim_mm_kernel"),
+    ("_Z3foov", "_Z3foov"),
+])
+def test_ptxas_label_reads_the_kernel_and_its_template(mangled, want):
+    assert chip_smoke.ptxas_label(mangled) == want
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    assert chip_smoke.ptxas_summary(REPORT) == {
+        "fastsim_scan_kernel<true>": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                                      "registers": 120},
+        "jitarb_kernel": {"stack": 1776, "spill_stores": 308, "spill_loads": 792,
+                          "registers": 128}}
+
+
+def test_path_counts_names_each_field():
+    import collections
+    paths = collections.Counter({(48, "shared", "all", "all"): 2, (8, "none", "all", "all"): 1})
+    assert chip_smoke.path_counts(paths, chip_smoke.SCAN_PATH_FIELDS) == {
+        "chains=48 shares=shared epoch_pow2=all issue_pow2=all": 2,
+        "chains=8 shares=none epoch_pow2=all issue_pow2=all": 1}
+
+
+def test_scan_bound_takes_the_longest_chain():
+    """A packed lane's latency bound is its longest segment's chain, and a
+    row's ns a step is its ms over that chain's steps."""
+    import numpy as np
+    from repro_torch.core import GemmSpec
+    from repro_torch.core.tiling import ALG1_POLICY
+    from repro_torch.core.trace import gemm_trace
+    t = gemm_trace(GemmSpec("g", 32, 128, 128), ALG1_POLICY)
+    out = np.zeros((2, 5))
+    whole = chip_smoke.scan_bound([t], [t, t], out, True, 0)
+    assert whole["longest_chain_steps"] == len(t)
+    part = chip_smoke.scan_bound([t], [t, t], out, True, 0, longest=10)
+    assert part["serial_chain_ops"] == chip_smoke.CHAIN_OPS_PER_STEP * 10
+    assert part["bound_ms"] == whole["bound_ms"]
+    row = chip_smoke.timed_row(2.0, "events", part)
+    assert row["ns_per_step"] == pytest.approx(2.0 * 1e6 / 10)

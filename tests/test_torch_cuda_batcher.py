@@ -15,6 +15,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.kernels import fastsim_scan as fsk
 from repro_torch.kernels import jitarb as kj
 from repro_torch.multicore import ChipConfig, jitarb
 from repro_torch.serving.simbatch import report_from_finishes, run_batcher, synthetic_trace
@@ -93,7 +94,6 @@ def test_torch_chip_on_the_card_runs_the_plain_program():
     """A ``torch`` chip whose device is the card settles the trace with the
     plain program there: no kernel launches, the numpy client's report."""
     need_cuda()
-    from repro_torch.kernels import fastsim_scan as fsk
     requests = trace(4, 7)
     chip = ChipConfig(backend="torch", device="cuda", n_cores=2, design="RASA-WLBP",
                       bw_bytes_per_cycle=32.0)
@@ -113,3 +113,81 @@ def test_cuda_chip_without_card_raises():
     assert ChipConfig().backend == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_batcher(trace(3, 1), ChipConfig(n_cores=2))
+
+
+def planned(n, seed, cores, prompt_lens=(16, 32), policy="occupancy"):
+    """The program's inputs for n requests on a cuda chip of `cores`
+    RASA-WLBP cores."""
+    requests = synthetic_trace(n, seed=seed, mean_gap=1, d_model=128, prompt_lens=prompt_lens,
+                               decode_steps=(1, 2), decode_batch=8)
+    chip = ChipConfig(backend="cuda", n_cores=cores, design="RASA-WLBP",
+                      bw_bytes_per_cycle=32.0)
+    p, why = jitarb.plan_ex(traffic(requests), chip, policy=policy)
+    assert p is not None, why
+    return jitarb._inputs([p])
+
+
+def kernel_equals_plain(args, akw):
+    """The kernel on the card and the plain version on the host's CPU, the
+    same inputs: every output equal.  Returns the launch's path."""
+    kj.reset_launches()
+    got = kj.jitarb_cuda(*args, **akw)
+    want = kj.jitarb_plain(*(a.cpu() for a in args), **akw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    (path,) = kj.launch_paths
+    return path
+
+
+def test_resume_from_a_snapshot_mid_trace():
+    """Relaxation rounds that resume lanes from snapshots in the middle of
+    their traces (rows of up to ~6 ring chunks; the plain version records
+    the resumes), bit for bit equal to the plain version."""
+    need_cuda()
+    args, akw = planned(6, 3, 2, prompt_lens=(128, 256))
+    assert int(args[2].max()) > 4 * 256
+    resumes = []
+    real = kj._Variant._resim
+
+    def spy(self, row_t, nblk, shares, n_sh, tail, sim, fc, cutoff):
+        before = list(self.lane_blocks)
+        out = real(self, row_t, nblk, shares, n_sh, tail, sim, fc, cutoff)
+        resumes.extend(nblk[c] - (self.lane_blocks[c] - before[c])
+                       for c in range(self.C) if sim[c])
+        return out
+
+    kj._Variant._resim = spy
+    try:
+        assert kernel_equals_plain(args, akw) == ("shared", "all")
+    finally:
+        kj._Variant._resim = real
+    assert any(0 < k0 for k0 in resumes)
+
+
+def test_eight_cores_at_the_largest_shared_table():
+    """C = 8 with the window S whose C x S shares just fill the shared
+    memory beside the eight warps' rings, and one epoch more (the shares
+    then live in device memory): both equal the plain version."""
+    need_cuda()
+    args, akw = planned(8, 3, 8)
+    s_max = kj.share_capacity(8) // 8
+    assert s_max >= akw["S"]
+    assert kernel_equals_plain(args, {**akw, "S": s_max})[0] == "shared"
+    assert kernel_equals_plain(args, {**akw, "S": s_max + 1})[0] == "global"
+
+
+def test_slow_divisions():
+    """An issue rate of 3: the division on the card, taken a step ahead,
+    equals the plain version's.  (The epoch is always a power of two: the
+    planner takes no other and the wrapper refuses one.)"""
+    need_cuda()
+    args, akw = planned(6, 3, 2, prompt_lens=(32, 64))
+
+    def with_lanes(**fields):
+        lane_f = args[6].clone()
+        for name, x in fields.items():
+            lane_f[:, fsk.LANE_FIELDS.index(name)] = x
+        return args[:6] + (lane_f,) + args[7:]
+
+    slow_issue = with_lanes(issue=3.0, issue_pow2=0.0)
+    assert kernel_equals_plain(slow_issue, akw)[1] == "none"

@@ -8,6 +8,7 @@ the JAX package, so it also runs on a GPU host that has neither:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_sim.py
 """
 
+import dataclasses
 import math
 import random
 
@@ -162,3 +163,127 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(TypeError):
         fsk.fastsim_scan_cuda(ends.long(), val, lane_f,
                               torch.tensor([[0, 2, 0, 0]], device=dev), shares, bucket=False)
+
+
+def scan_both(args, bucket, n_seg=0):
+    """The kernel and its plain version (on the card) on the same inputs."""
+    kernel = fsk.fastsim_scan_cuda(*args, bucket=bucket, n_seg=n_seg)
+    plain = fsk.fastsim_scan_plain(*args, bucket=bucket, n_seg=n_seg)
+    for k, p in zip(kernel, plain):
+        assert torch.equal(k.cpu(), p.cpu())
+    return kernel
+
+
+@pytest.mark.parametrize("model", list(PARAMS))
+def test_scan_odd_lo_and_a_ragged_tail(model):
+    """Lanes that start at odd positions of the columns (a first trace of
+    odd length, a lane starting mid-trace), a trace of ~13 ring chunks, and
+    columns whose length is not a multiple of 4 (the ring reads the last
+    positions itself): the kernel equals its plain version, and the numpy
+    lane on a whole trace; columns off a 16-byte edge are copied first."""
+    need_cuda()
+    short, = traces([21], n=293)
+    long_, = traces([22], n=3300)
+    p = PARAMS[model]
+    cfgs = CFGS[:3]
+    lanes = [(0, c, p) for c in cfgs] + [(1, c, p) for c in cfgs]
+    args, bucket = fastsim.scan_inputs([short, long_], lanes, "cuda")
+    n_col = args[0].numel()
+    assert n_col % 4 and len(short) % 2 and args[3][3, 0] % 2
+    args[3][0, 0] = 7                        # a lane from the middle of the first trace
+    out, _ = scan_both(args, bucket)
+    want = [fastsim._run_numpy_params(long_, c, p)[0] for c in cfgs]
+    assert out[3:, 0].tolist() == [w.cycles for w in want]
+    # the columns one position on (off their 16-byte edge), the lanes that
+    # start past position 0
+    keep = [0, 3, 4, 5]
+    shifted = (args[0][1:], args[1][1:], args[2][keep],
+               args[3][keep] - torch.tensor([1, 1, 0, 0], device="cuda"), args[4])
+    assert args[0][1:].data_ptr() % 16
+    kernel, _ = fsk.fastsim_scan_cuda(*shifted, bucket=bucket)
+    assert torch.equal(kernel, out[keep])
+
+
+def test_scan_shares_past_the_shared_table():
+    """A lane with more epoch shares than a CTA stages reads them from
+    device memory (the launch reports it), beside a lane whose shares fit;
+    both equal the plain version and the numpy lane."""
+    need_cuda()
+    tr, = traces([23], n=400)
+    many = P(2, 1, tuple(8.0 + (k % 7) for k in range(10_000)), 16.0, 32.0, 1024.0, True)
+    few = PARAMS["epoch"]
+    cfg = DESIGNS["RASA-DMDB-WLS"]
+    lanes = [(0, cfg, many), (0, cfg, few)]
+    args, bucket = fastsim.scan_inputs([tr], lanes, "cuda")
+    fsk.reset_launches()
+    out, _ = scan_both(args, bucket)
+    assert [path[1] for path in fsk.launch_paths] == ["mixed"]
+    want = [fastsim._run_numpy_params(tr, cfg, p) for p in (many, few)]
+    assert out[:, 0].tolist() == [w[0].cycles for w in want]
+    assert out[:, 3].tolist() == [w[1] for w in want]
+    fsk.reset_launches()
+    got = fastsim.sweep_trace(tr, CFGS, many, backend="cuda")
+    assert [path[1] for path in fsk.launch_paths] == ["global"]
+    assert [key(g) for g in got] == [key(fastsim._run_numpy_params(tr, c, many)[0])
+                                     for c in CFGS]
+
+
+@pytest.mark.parametrize("layout", ["sweep", "packed"])
+def test_scan_slow_divisions(layout):
+    """An epoch of 1000 cycles and an issue rate of 3 (neither a power of
+    two: py_floordiv and the division, taken a step ahead): the kernel
+    equals its plain version and the numpy lane, and the launch reports the
+    slow paths."""
+    need_cuda()
+    trs = traces([24, 25], n=250)
+    p = P(2, 1, (8.0, 16.0, 48.0, 24.0), 1000.0, 64.0, 2048.0, True)
+    cfgs = [dataclasses.replace(c, core_issue_width=3, core_clock_hz=c.engine_clock_hz)
+            for c in CFGS[:4]]
+    assert all(c.core_issue_width * c.core_clock_hz / c.engine_clock_hz == 3.0 for c in cfgs)
+    fsk.reset_launches()
+    if layout == "sweep":
+        got = [fastsim.sweep_trace(t, cfgs, p, backend="cuda") for t in trs]
+    else:
+        got = fastsim.sweep_traces(trs, cfgs, p, backend="cuda")
+    assert {path[2:] for path in fsk.launch_paths} == {("none", "none")}
+    want = [[fastsim._run_numpy_params(t, c, p)[0] for c in cfgs] for t in trs]
+    assert [[key(g) for g in row] for row in got] == [[key(w) for w in row] for row in want]
+    packed, _, _ = fastsim._pack_lane(trs)
+    args, bucket = fastsim.scan_inputs([packed], [(0, c, p) for c in cfgs], "cuda")
+    scan_both(args, bucket, n_seg=len(trs))
+
+
+def test_scan_packed_unequal_segments():
+    """Packed segments of unequal lengths (one empty, one of ~10 chunks):
+    one CTA a segment, each row equal to the plain version's and to the
+    numpy lane's, the lane's walks the sum of its segments'."""
+    need_cuda()
+    trs = traces([26], n=40) + [compile_stream([])] + traces([27], n=2600) \
+        + traces([28], n=150)
+    p = PARAMS["epoch"]
+    packed, _, _ = fastsim._pack_lane(trs)
+    args, bucket = fastsim.scan_inputs([packed], [(0, c, p) for c in CFGS], "cuda")
+    fsk.reset_launches()
+    out, seg = scan_both(args, bucket, n_seg=len(trs))
+    assert [path[0] for path in fsk.launch_paths] == [len(CFGS) * (len(trs) + 1)]
+    assert torch.equal(out[:, 4], seg[:, :, 4].sum(0))
+    got = fastsim.sweep_traces(trs, CFGS, p, backend="cuda")
+    want = [[fastsim._run_numpy_params(t, c, p)[0] for c in CFGS] for t in trs]
+    assert [[key(g) for g in row] for row in got] == [[key(w) for w in row] for row in want]
+
+
+def test_scan_never_granted_in_a_middle_segment():
+    """A packed lane whose middle segment outlives a schedule with no tail
+    share raises the numpy lane's error on the card, though the segments
+    around it run to their ends."""
+    need_cuda()
+    p = P(2, 1, (64.0,) * 16, 64.0, 1.0, 512.0, True)
+    object.__setattr__(p, "tail_share", 0.0)
+    cfg = DESIGNS["RASA-WLBP"]
+    first, middle, last = traces([20], n=20) + traces([300], n=300) + traces([40], n=40)
+    fastsim._run_numpy_params(first, cfg, p)
+    fastsim._run_numpy_params(last, cfg, p)
+    with pytest.raises(RuntimeError, match="can never be granted"):
+        fastsim._run_numpy_params(middle, cfg, p)
+    with pytest.raises(RuntimeError, match="can never be granted"):
+        fastsim.sweep_traces([first, middle, last], [cfg], p, backend="cuda")
