@@ -129,7 +129,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      kernel's device time on DLRM-2 x 8 designs (beside its plain version
      and the numpy lane) and at its main-path shape, its bound (bytes over
      the HBM rate, fp64 operations over the fp64 peak), its serial chain
-     (a packed lane's longest segment) and ns a step on it, ptxas's
+     (a packed lane's longest segment; the MM-only kernel's longest lane)
+     and ns a step on it, ptxas's
      registers and spill bytes, the main path's launches by path (shares
      in shared or device memory, the exact-division flags), and the host's
      share (lowering, analysis, packing, upload, readback; the end-to-end
@@ -1962,7 +1963,12 @@ SCAN_OPS = {"tl": 6, "ts": 6, "mm": 15, "grant": 5, "walk": 16}
 MM_SCAN_OPS = 17               # per MM row of fastsim_mm_kernel (WLS path, a free store)
 # the dependent fp64 operations of a step's longest chain through the carry: an MM
 # under WLS (wl_start's max of three: 2, the hidden compare: 1, weights_ready: 1,
-# ff_start's max of three: 2, ff_end: 1, fs_end: 1)
+# ff_start's max of three: 2, ff_end: 1, fs_end: 1).  A floor: it leaves out the
+# register file, whose path is longer where a row reads the register the row before
+# wrote (dr_end's add, set_reg's select, get_reg's fold of up to 7 selects, the
+# operand's select, t_ready_ac's two maxima, ff_start's two, ff_end and fs_end: up to
+# 16 dependent operations; fastsim_mm_kernel stores and loads the ready-time in
+# shared memory instead)
 CHAIN_OPS_PER_STEP = 8
 PREDICTION_SIM = (
     "fastsim_mm_scan over Table I x 8 designs (72 lanes; the longest, ResNet50-2, 451,584 "
@@ -1972,6 +1978,17 @@ PREDICTION_SIM = (
     "epoch bucket: 150-900 ms. sweep_workload(Table I, backend='cuda') end to end 2-6 s, "
     "most of it the host's dataflow analysis and packing; the numpy lane 15-40 s for the "
     "same 72 pairs; lowering Table I 15-35 s. The card idles: 72 threads on 9 of 132 SMs.")
+
+PREDICTION_MM = (
+    "fastsim_mm_kernel redesigned (its rows through a TMA ring of six doubles a row, "
+    "get_reg a select tree, the next row loaded into registers while a row runs, the last "
+    "row's result forwarded past the register file): the main path (Table I x 8 designs, "
+    "72 lanes; ResNet50-2's 451,584 rows the longest) 25-60 ms against 235.8-236.0, at "
+    "55-130 ns a row on the longest lane (before: ~522), 1.7-4x its latency bound of "
+    "14.6 ms; DLRM-2 x 8 0.25-0.60 ms against 1.63. Levers, as shares of the time "
+    "removed: the ring 55-75% (a row's loads from device memory were the step), the select "
+    "tree 0-10%, the prefetch 5-20%, the forwarding 5-25%. fastsim_mm_kernel at most 96 "
+    "registers, 0 spill; rows 6 and 8 within the parent's spread.")
 
 
 PREDICTION_STEP = (
@@ -2058,6 +2075,7 @@ def mm_bound(cols) -> dict:
     fields = bound_fields(nbytes / HBM_BYTES_PER_S * 1e3,
                           MM_SCAN_OPS * float(steps.sum()) / FP64_PEAK * 1e3)
     fields["serial_chain_ops"] = CHAIN_OPS_PER_STEP * int(steps.max())
+    fields["longest_chain_steps"] = int(steps.max())
     fields["lane_steps"] = int(steps.sum())
     return fields
 
@@ -2085,7 +2103,10 @@ def timed_row(ms: float, timer: str, bound: dict) -> dict:
 def ptxas_label(mangled: str) -> str:
     """A kernel's name and bool template arguments from its mangled name,
     e.g. ``fastsim_scan_kernel<true>`` (the mangled name where none
-    parses)."""
+    parses).  The name is the innermost one that parses: digits of the
+    namespace's hash can spell a longer length prefix that also ends in
+    the kernel's name."""
+    found = None
     for i, ch in enumerate(mangled):
         if not ch.isdigit():
             continue
@@ -2095,11 +2116,14 @@ def ptxas_label(mangled: str) -> str:
         n = int(mangled[i:j])
         name = mangled[j:j + n]
         if len(name) == n and name.isidentifier() and name.endswith("kernel"):
-            args = re.match(r"I((?:Lb[01]E)+)E", mangled[j + n:])
-            flags = re.findall(r"Lb([01])E", args.group(1)) if args else []
-            return name + (f"<{', '.join('true' if f == '1' else 'false' for f in flags)}>"
-                           if flags else "")
-    return mangled
+            found = (name, j + n)
+    if found is None:
+        return mangled
+    name, end = found
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+    flags = re.findall(r"Lb([01])E", args.group(1)) if args else []
+    return name + (f"<{', '.join('true' if f == '1' else 'false' for f in flags)}>"
+                   if flags else "")
 
 
 def ptxas_summary(report: str) -> dict:
@@ -2210,6 +2234,8 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
     print("prediction (written before the first run of phase 11): " + PREDICTION_SIM)
     print("prediction (written before the redesigned step's first timed run): "
           + PREDICTION_STEP)
+    print("prediction (written before the redesigned MM-only kernel's first timed run): "
+          + PREDICTION_MM)
     fixtures = ROOT / "tests" / "fixtures"
     fig5 = json.loads((fixtures / "fig5_runtime.json").read_text())
     fig7 = json.loads((fixtures / "fig7_batch.json").read_text())
@@ -2381,7 +2407,8 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                   numpy["cores"][0][0])
     print(f"simulate: main path equal to the numpy lane; launches {main_launches}")
     print("simulate: the main path's fastsim_scan launches by path: " + json.dumps(main_paths))
-    ptxas = {k: v for k, v in ptxas.get("fastsim", {}).items() if k.startswith("fastsim_scan")}
+    ptxas = {key: {k: v for k, v in ptxas.get("fastsim", {}).items()
+                   if k.startswith(fsk.KERNEL_NAMES[key])} for key in fsk.KERNEL_NAMES}
     print("simulate: Fig. 5 normalized runtime (Table I, cuda = numpy): " + json.dumps(
         {s.name: {n: r[n].cycles / r["BASE"].cycles for n in names}
          for s, r in zip(table, table_cuda)}))
@@ -2477,8 +2504,8 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
              "latency_bound_ms": row["latency_bound_ms"],
              "ns_per_chain_op": row["ns_per_chain_op"],
              "lane_steps_per_s": row["lane_steps_per_s"], "main_path": row["main_path"],
-             **({"ns_per_step": row["ns_per_step"], "ptxas": ptxas, "paths": main_paths}
-                if key == "scan" else {}),
+             "ns_per_step": row["ns_per_step"], "ptxas": ptxas[key],
+             **({"paths": main_paths} if key == "scan" else {}),
              **({"ms_port_model": row["ms_port_model"]} if "ms_port_model" in row else {}),
              "work": works[key]} for key, row in rows.items()]
 

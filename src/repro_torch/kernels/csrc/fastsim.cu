@@ -30,8 +30,13 @@
 //    host), not divisions on the chain;
 //  * the carry stays in registers (the eight register ready-times by
 //    unrolled selects, never indexed memory).
-// The MM-only kernel (below) runs one lane a thread, its rows read from
-// device memory.
+// The MM-only kernel (below) has a shorter step, so the instructions a row
+// issues bound it as much as the row's chain.  One CTA a lane; its thread
+// streams the rows (a code and six doubles, 52 bytes) through the same TMA
+// ring with six doubles a position, loads each row into registers while the
+// row before runs, keeps the register file in shared memory (a load and a
+// store a row, not selects over eight registers), and runs a loop without
+// branches for each weight-load path, unrolled so that rows interleave.
 //
 // Bit-equality with the numpy lane (core/fastsim.py::run_segment):
 //  * every statement is transcribed from run_segment (fastsim_step.cuh and
@@ -58,9 +63,6 @@ constexpr int kChainI = 4;
 // outputs per lane (and per emitted segment): t_end, wl_skips, bw_stall,
 // last_grant, bucket walk steps (a lane's: all its segments')
 constexpr int kOut = 5;
-// the MM-only kernel: one lane a CTA (lanes diverge: designs take other
-// branches), so each lane has an SM's scheduler to itself
-constexpr int kLanesPerCta = 1;
 // the full-stream kernel: a warp a chain; its 32 threads stage the lane's
 // shares, then one runs the chain
 constexpr int kScanThreads = 32;
@@ -129,79 +131,153 @@ __global__ void __launch_bounds__(kScanThreads) fastsim_scan_kernel(
 constexpr int kMMLaneF = 6;
 // per-row doubles: a_const, b_const, c_const, tm, t_issue, ts_issue
 constexpr int kMMVal = 6;
+// the MM-only kernel's ring: a row's code and its six doubles (39,936 bytes)
+using MMRing = RingT<kMMVal>;
+// rows of the MM-only loop unrolled, so the compiler interleaves a row's
+// loads, decoding and register-file reads with the chain of the rows before
+constexpr int kMMUnroll = 4;
+// the reference's weight-load paths (a lane's design takes one): one loop each
+enum MMPath { kBase, kPipe, kWls };
 
-// One lane's MM-only recurrence (the reference's _jax_mm_fn step) over the
-// rasa_mm rows [lo, hi) of its trace's block.  code packs c, a, b (4 bits
-// each), then a_dyn, b_dyn, c_dyn, reusable, ts_mask (one bit each): an
-// operand whose last writer is an MM reads its register's ready-time,
-// any other its static ready-time from val.
-__global__ void __launch_bounds__(kLanesPerCta) fastsim_mm_kernel(
-    const int32_t* __restrict__ code, const double* __restrict__ val,
-    const double* __restrict__ lane_f, const long long* __restrict__ lane_rows,
-    int n_lanes, double* __restrict__ out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const double* f = lane_f + (size_t)lane * kMMLaneF;
-  const double wl = f[0], fs = f[1], dr = f[2];
-  const bool wlbp = f[3] != 0.0, wls = f[4] != 0.0, pipe = f[5] != 0.0;
-  const long long lo = lane_rows[2 * lane], hi = lane_rows[2 * lane + 1];
+// One MM row in registers: its code and its six doubles (a row's doubles
+// start on a 16-byte edge of the ring: three 16-byte loads)
+struct MMRow {
+  int c;
+  double v[kMMVal];
 
-  double reg_ready[NREG];
+  __device__ __forceinline__ void load(const int32_t* cs, const double* vs, int k) {
+    c = cs[k];
+    const double2* p = reinterpret_cast<const double2*>(vs + k * kMMVal);
 #pragma unroll
-  for (int k = 0; k < NREG; ++k) reg_ready[k] = 0.0;
-  double p_ff_start = -1.0, p_ff_end = 0.0, p_fs_end = 0.0, p_dr_end = 0.0;
+    for (int j = 0; j < kMMVal / 2; ++j) {
+      const double2 d = p[j];
+      v[2 * j] = d.x;
+      v[2 * j + 1] = d.y;
+    }
+  }
+};
+
+// One lane's MM-only carry (the reference's _jax_mm_fn state; the register
+// file's ready-times live in shared memory).  p_ff_start starts at 0: the
+// reference's -1 is read only after a row, so `have_prev ? p_x : 0` is p_x
+// for every carry.
+struct MMCarry {
+  double p_ff_start = 0.0, p_ff_end = 0.0, p_fs_end = 0.0, p_dr_end = 0.0;
   double wl_port_free = 0.0, t_end = 0.0;
   bool have_prev = false;
   long long wl_skips = 0;
-  for (long long r = lo; r < hi; ++r) {
-    const int c = code[r];
-    const double* v = val + (size_t)r * kMMVal;
-    const int cr = c & 15, ar = (c >> 4) & 15, br = (c >> 8) & 15;
-    const double ra = (c >> 12) & 1 ? get_reg(reg_ready, ar) : v[0];
-    const double rb = (c >> 13) & 1 ? get_reg(reg_ready, br) : v[1];
-    const double rc = (c >> 14) & 1 ? get_reg(reg_ready, cr) : v[2];
-    const double t_issue = v[4];
-    const double t_ready_ac = pymax(t_issue, ra, rc);
-    const double t_ready_b = pymax(t_issue, rb);
-    const bool reuse = wlbp && ((c >> 15) & 1);
-    double ff_start;
-    if (reuse) {
-      ff_start = pymax(t_ready_ac, have_prev ? p_ff_end : 0.0);
-      wl_skips += 1;
-    } else if (wls) {
-      const double wl_start = pymax(t_ready_b, have_prev ? p_ff_start : 0.0, wl_port_free);
-      const bool hidden = have_prev && wl_start <= p_fs_end;
-      const double weights_ready = hidden ? wl_start + 1.0 : wl_start + wl;
-      ff_start = pymax(t_ready_ac, have_prev ? p_ff_end : 0.0, weights_ready);
-      wl_port_free = wl_start + wl;
-    } else if (pipe) {
-      const double wl_start = pymax(t_ready_b, have_prev ? p_fs_end : 0.0, wl_port_free);
-      ff_start = pymax(t_ready_ac, wl_start + wl, have_prev ? p_dr_end : 0.0);
-      wl_port_free = wl_start + wl;
-    } else {  // BASE
-      const double wl_start = pymax(t_ready_b, have_prev ? p_dr_end : 0.0, wl_port_free);
-      ff_start = pymax(t_ready_ac, wl_start + wl);
-      wl_port_free = wl_start + wl;
-    }
-    const double ff_end = ff_start + v[3];
-    const double fs_end = ff_end + fs;
-    const double dr_end = fs_end + dr;
-    set_reg(reg_ready, cr, dr_end);
-    if (dr_end > t_end) t_end = dr_end;
-    // the latest free store of this MM's result retires at
-    // max(its issue, dr_end) + 1
-    if ((c >> 16) & 1) {
-      const double ts_end = pymax(v[5], dr_end) + 1.0;
-      if (ts_end > t_end) t_end = ts_end;
-    }
-    p_ff_start = ff_start;
-    p_ff_end = ff_end;
-    p_fs_end = fs_end;
-    p_dr_end = dr_end;
-    have_prev = true;
+};
+
+// A lane's MM-only design fields (wls and pipe pick the loop: MMPath)
+struct MMDesign {
+  double wl, fs, dr;
+  bool wlbp;
+};
+
+// One row of the reference's MM-only step on weight-load path kPath, in its
+// statement order.  code packs c, a, b (4 bits each; ids below NREG, the
+// wrapper checks), then a_dyn, b_dyn, c_dyn, reusable, ts_mask (one bit
+// each): an operand whose last writer is an MM reads its register's
+// ready-time from the register file `rf`, any other its static ready-time
+// from the row.  No branch: a reusing row's ff_start and port time are
+// selected, so the unrolled rows are one block of straight-line code.
+template <int kPath>
+__device__ __forceinline__ void mm_step(MMCarry& s, const MMRow& row, const MMDesign& d,
+                                        double* rf) {
+  const int c = row.c;
+  const double* v = row.v;
+  const int cr = c & (NREG - 1), ar = (c >> 4) & (NREG - 1), br = (c >> 8) & (NREG - 1);
+  const double ra = (c >> 12) & 1 ? rf[ar] : v[0];
+  const double rb = (c >> 13) & 1 ? rf[br] : v[1];
+  const double rc = (c >> 14) & 1 ? rf[cr] : v[2];
+  const double t_issue = v[4];
+  const double t_ready_ac = pymax(t_issue, ra, rc);
+  const double t_ready_b = pymax(t_issue, rb);
+  const bool reuse = d.wlbp && ((c >> 15) & 1);
+  double wl_start, ff_load;   // the weight load's start; ff_start where the row loads
+  if (kPath == kWls) {
+    wl_start = pymax(t_ready_b, s.p_ff_start, s.wl_port_free);
+    const bool hidden = s.have_prev && wl_start <= s.p_fs_end;
+    const double weights_ready = hidden ? wl_start + 1.0 : wl_start + d.wl;
+    ff_load = pymax(t_ready_ac, s.p_ff_end, weights_ready);
+  } else if (kPath == kPipe) {
+    wl_start = pymax(t_ready_b, s.p_fs_end, s.wl_port_free);
+    ff_load = pymax(t_ready_ac, wl_start + d.wl, s.p_dr_end);
+  } else {
+    wl_start = pymax(t_ready_b, s.p_dr_end, s.wl_port_free);
+    ff_load = pymax(t_ready_ac, wl_start + d.wl);
   }
-  out[2 * lane] = t_end;
-  out[2 * lane + 1] = (double)wl_skips;
+  const double ff_start = reuse ? pymax(t_ready_ac, s.p_ff_end) : ff_load;
+  s.wl_port_free = reuse ? s.wl_port_free : wl_start + d.wl;
+  s.wl_skips += reuse;
+  const double ff_end = ff_start + v[3];
+  const double fs_end = ff_end + d.fs;
+  const double dr_end = fs_end + d.dr;
+  rf[cr] = dr_end;
+  if (dr_end > s.t_end) s.t_end = dr_end;
+  // the latest free store of this MM's result retires at
+  // max(its issue, dr_end) + 1
+  if ((c >> 16) & 1) {
+    const double ts_end = pymax(v[5], dr_end) + 1.0;
+    if (ts_end > s.t_end) s.t_end = ts_end;
+  }
+  s.p_ff_start = ff_start;
+  s.p_ff_end = ff_end;
+  s.p_fs_end = fs_end;
+  s.p_dr_end = dr_end;
+  s.have_prev = true;
+}
+
+// A lane's rows [lo, hi) through the ring, each row loaded into registers
+// while the row before runs
+template <int kPath>
+__device__ __forceinline__ void mm_lane(MMRing& ring, MMCarry& s, const MMDesign& d, double* rf,
+                                        const int32_t* code, const double* val, long long n,
+                                        long long lo, long long hi) {
+  ring.chunks(code, val, n, lo, hi,
+              [&](long long, int k0, int k1, const int32_t* cs, const double* vs) {
+                MMRow next;
+                next.load(cs, vs, k0);
+#pragma unroll kMMUnroll
+                for (int k = k0; k < k1; ++k) {
+                  const MMRow row = next;
+                  // the chunk's last row reloads itself: the next row is in
+                  // the next chunk's stage, not yet waited for
+                  next.load(cs, vs, k + 1 < k1 ? k + 1 : k);
+                  mm_step<kPath>(s, row, d, rf);
+                }
+                return 0;
+              });
+}
+
+// One lane's MM-only recurrence over the rasa_mm rows [lo, hi) of its
+// trace's block: one CTA a lane (lanes diverge: designs take other paths),
+// its one thread streaming the rows through a TMA ring.
+__global__ void __launch_bounds__(1) fastsim_mm_kernel(
+    const int32_t* __restrict__ code, const double* __restrict__ val, long long n_rows,
+    const double* __restrict__ lane_f, const long long* __restrict__ lane_rows,
+    double* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bars[kStages];
+  __shared__ double rf[NREG];   // each register's ready-time
+  const int lane = blockIdx.x;
+  const double* f = lane_f + (size_t)lane * kMMLaneF;
+  const MMDesign d{f[0], f[1], f[2], f[3] != 0.0};
+  const long long lo = lane_rows[2 * lane], hi = lane_rows[2 * lane + 1];
+  MMRing ring(smem, 0, bars);
+  ring.init();
+  for (int k = 0; k < NREG; ++k) rf[k] = 0.0;
+  __syncthreads();
+
+  MMCarry s;
+  if (f[4] != 0.0)
+    mm_lane<kWls>(ring, s, d, rf, code, val, n_rows, lo, hi);
+  else if (f[5] != 0.0)
+    mm_lane<kPipe>(ring, s, d, rf, code, val, n_rows, lo, hi);
+  else
+    mm_lane<kBase>(ring, s, d, rf, code, val, n_rows, lo, hi);
+  out[2 * lane] = s.t_end;
+  out[2 * lane + 1] = (double)s.wl_skips;
 }
 
 template <bool kBucket>
@@ -256,15 +332,15 @@ int fastsim_scan(int bucket, const void* code, const void* val, long long n_col,
   return (int)r;
 }
 
-// The MM-only scan: lane l runs the rows lane_rows[l] of code [rows] and
-// val [rows, 6] under lane_f[l]; out [n_lanes, 2]: t_end, wl_skips.
-int fastsim_mm_scan(const void* code, const void* val, const void* lane_f, const void* lane_rows,
-                    int n_lanes, void* out, void* stream) {
+// The MM-only scan: lane l runs the rows lane_rows[l] of code [n_rows] and
+// val [n_rows, 6] (both 16-byte aligned) under lane_f[l], one CTA each;
+// out [n_lanes, 2]: t_end, wl_skips.
+int fastsim_mm_scan(const void* code, const void* val, long long n_rows, const void* lane_f,
+                    const void* lane_rows, int n_lanes, void* out, void* stream) {
   if (n_lanes <= 0) return 0;
-  const int grid = (n_lanes + kLanesPerCta - 1) / kLanesPerCta;
-  fastsim_mm_kernel<<<grid, kLanesPerCta, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(code), static_cast<const double*>(val),
-      static_cast<const double*>(lane_f), static_cast<const long long*>(lane_rows), n_lanes,
+  fastsim_mm_kernel<<<n_lanes, 1, MMRing::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(code), static_cast<const double*>(val), n_rows,
+      static_cast<const double*>(lane_f), static_cast<const long long*>(lane_rows),
       static_cast<double*>(out));
   return (int)cudaGetLastError();
 }

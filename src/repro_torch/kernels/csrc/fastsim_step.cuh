@@ -1,6 +1,7 @@
 // The RASA pipeline simulator's per-instruction step, and the staging ring
 // that feeds it, shared by the full-stream scan kernel (fastsim.cu) and the
-// whole-trace arbitration kernel (jitarb.cu).
+// whole-trace arbitration kernel (jitarb.cu); the MM-only kernel (fastsim.cu)
+// streams its rows through the same ring, six doubles a position.
 //
 // The step transcribes the statements of core/fastsim.py::run_segment for
 // one instruction, in their order, with Python's max() (the first of equal
@@ -322,34 +323,38 @@ __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_
 // The staging ring: one lane's instruction stream in shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int kChunk = 256;    // instructions a chunk (a multiple of jitarb.cu's kBlock)
+constexpr int kChunk = 256;    // positions a chunk (a multiple of jitarb.cu's kBlock)
 constexpr int kStages = 3;     // chunks a ring holds: a chunk is filled two ahead
-// bytes of one ring in dynamic shared memory: codes, then values
-constexpr int kRingBytes = kStages * kChunk * (4 + 8);
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One lane's ring of kStages chunks.  A chunk covers the column's positions
-// [g kChunk, (g + 1) kChunk); every copy starts and ends on a 16-byte edge of
-// the column (4 instructions), so a lane's first copy starts at lo rounded
-// down and reads up to 3 instructions before it.  The positions past the
-// column's last 16-byte edge are read by the thread itself: no copy reads
-// past the column.  One thread runs a ring: it issues the copies and waits
-// on the stages' barriers; `fills` counts every fill of the ring's life, so
-// the barriers' phases carry over from one run to the next.
-struct Ring {
+// One lane's ring of kStages chunks of a code column (int32 a position) and
+// a value column (kW doubles a position).  A chunk covers the columns'
+// positions [g kChunk, (g + 1) kChunk); every copy starts and ends on a
+// 16-byte edge of the code column (4 positions), so a lane's first copy
+// starts at lo rounded down and reads up to 3 positions before it.  The
+// positions past the code column's last 16-byte edge are read by the thread
+// itself: no copy reads past a column.  One thread runs a ring: it issues
+// the copies and waits on the stages' barriers; `fills` counts every fill
+// of the ring's life, so the barriers' phases carry over from one run to
+// the next.
+template <int kW>
+struct RingT {
+  // bytes of one ring in dynamic shared memory: values, then codes
+  static constexpr int kBytes = kStages * kChunk * (4 + 8 * kW);
+
   int32_t* code_s;   // [kStages][kChunk], shared memory
-  double* val_s;     // [kStages][kChunk], shared memory
+  double* val_s;     // [kStages][kChunk][kW], shared memory
   uint64_t* bar;     // [kStages], shared memory
   unsigned fills;
 
   // ring `k` of the dynamic shared memory at `base`, with its barriers
-  __device__ __forceinline__ Ring(unsigned char* base, int k, uint64_t* bars)
-      : code_s(reinterpret_cast<int32_t*>(base + (size_t)k * kRingBytes +
-                                          kStages * kChunk * 8)),
-        val_s(reinterpret_cast<double*>(base + (size_t)k * kRingBytes)),
+  __device__ __forceinline__ RingT(unsigned char* base, int k, uint64_t* bars)
+      : code_s(reinterpret_cast<int32_t*>(base + (size_t)k * kBytes +
+                                          kStages * kChunk * 8 * kW)),
+        val_s(reinterpret_cast<double*>(base + (size_t)k * kBytes)),
         bar(bars + k * kStages), fills(0) {}
 
   // the barriers' set-up, once, before any fill (then a CTA barrier)
@@ -359,7 +364,7 @@ struct Ring {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
 
-  // fill chunk g of the run [lo, hi) of a column of n positions
+  // fill chunk g of the run [lo, hi) of columns of n positions
   __device__ __forceinline__ void fill(const int32_t* code, const double* val, long long n,
                                        long long lo, long long hi, long long g) {
     const int s = fills % kStages;
@@ -370,17 +375,17 @@ struct Ring {
     const long long n16 = n & ~3LL;
     const long long bb = b < n16 ? b : n16;   // the copies' end
     int32_t* cs = code_s + s * kChunk;   // position p at cs[p - c0]
-    double* vs = val_s + s * kChunk;
-    for (long long p = bb; p < b && p < n; ++p) {   // past the column's last edge
+    double* vs = val_s + (size_t)s * kChunk * kW;
+    for (long long p = bb; p < b && p < n; ++p) {   // past the code column's last edge
       cs[p - c0] = code[p];
-      vs[p - c0] = val[p];
+      for (int w = 0; w < kW; ++w) vs[(p - c0) * kW + w] = val[p * kW + w];
     }
     const uint32_t n_copy = bb > a ? (uint32_t)(bb - a) : 0u;
     const uint32_t mb = smem_addr(bar + s);
     // the stage's last reads (generic proxy) come before the copies' writes
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
-                 "r"(n_copy * 12u)
+                 "r"(n_copy * (4u + 8u * kW))
                  : "memory");
     if (n_copy) {
       asm volatile(
@@ -390,8 +395,8 @@ struct Ring {
           : "memory");
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];" ::"r"(smem_addr(vs + (a - c0))),
-          "l"(val + a), "r"(n_copy * 8u), "r"(mb)
+          "[%3];" ::"r"(smem_addr(vs + (a - c0) * kW)),
+          "l"(val + a * kW), "r"(n_copy * 8u * kW), "r"(mb)
           : "memory");
     }
     ++fills;
@@ -413,13 +418,15 @@ struct Ring {
     return s;
   }
 
-  // Run body(pos, code, &val) over the positions [lo, hi) of a column of n
-  // positions (code and val 16-byte aligned), in order, until it returns an
-  // error; returns it (or 0).  Every fill issued is waited for before the
-  // return, so the ring is free for the next run.
-  template <class Body>
-  __device__ __forceinline__ int run(const int32_t* code, const double* val, long long n,
-                                     long long lo, long long hi, Body&& body) {
+  // Run chunk(c0, k0, k1, cs, vs) over the chunks of the positions [lo, hi)
+  // of columns of n positions (code and val 16-byte aligned), in order: the
+  // chunk's positions c0 + [k0, k1) are at cs[k] and vs + k kW in shared
+  // memory.  Stops at the first chunk that returns an error and returns it
+  // (or 0).  Every fill issued is waited for before the return, so the ring
+  // is free for the next run.
+  template <class Chunk>
+  __device__ __forceinline__ int chunks(const int32_t* code, const double* val, long long n,
+                                        long long lo, long long hi, Chunk&& chunk) {
     if (lo >= hi) return 0;
     const long long g0 = lo / kChunk, g1 = (hi - 1) / kChunk + 1;
     unsigned next = fills;   // the next fill to wait for
@@ -432,16 +439,31 @@ struct Ring {
       const long long c0 = g * kChunk;
       const int k0 = (int)((lo > c0 ? lo : c0) - c0);
       const int k1 = (int)((hi < c0 + kChunk ? hi : c0 + kChunk) - c0);
-      const int32_t* cs = code_s + s * kChunk;
-      const double* vs = val_s + s * kChunk;
-      for (int k = k0; k < k1; ++k) {
-        err = body(c0 + k, cs[k], vs + k);
-        if (err) break;
-      }
+      err = chunk(c0, k0, k1, code_s + s * kChunk, val_s + (size_t)s * kChunk * kW);
     }
     while (next != fills) wait(next++);   // an error left fills in flight
     return err;
   }
+
+  // Run body(pos, code, &val) over the positions [lo, hi), in order, until
+  // it returns an error; returns it (or 0).
+  template <class Body>
+  __device__ __forceinline__ int run(const int32_t* code, const double* val, long long n,
+                                     long long lo, long long hi, Body&& body) {
+    return chunks(code, val, n, lo, hi,
+                  [&](long long c0, int k0, int k1, const int32_t* cs, const double* vs) {
+                    int err = 0;
+                    for (int k = k0; k < k1; ++k) {
+                      err = body(c0 + k, cs[k], vs + k * kW);
+                      if (err) break;
+                    }
+                    return err;
+                  });
+  }
 };
+
+// the instruction stream's ring: one double a position
+using Ring = RingT<1>;
+constexpr int kRingBytes = Ring::kBytes;
 
 }  // namespace fastsim

@@ -471,7 +471,7 @@ def _lib():
         lib.fastsim_scan.argtypes = [i, p, p, ll, p, p, p, p, i, i, ll, p, p, p,
                                      ctypes.POINTER(i), p]
         lib.fastsim_scan.restype = i
-        lib.fastsim_mm_scan.argtypes = [p, p, p, p, i, p, p]
+        lib.fastsim_mm_scan.argtypes = [p, p, ll, p, p, i, p, p]
         lib.fastsim_mm_scan.restype = i
         lib.fastsim_error_string.argtypes = [i]
         lib.fastsim_error_string.restype = ctypes.c_char_p
@@ -577,8 +577,9 @@ def fastsim_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tenso
 def fastsim_mm_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
                          lane_rows: torch.Tensor) -> torch.Tensor:
     """The MM-only scan through ``fastsim_mm_kernel``, on the current
-    stream, one thread per lane.  Raises on a CPU tensor, on rows outside
-    the columns and on register ids outside the register file."""
+    stream, one CTA per lane.  Raises on a CPU tensor, on rows outside the
+    columns and on register ids outside the register file.  Columns whose
+    data does not start on a 16-byte edge are copied first."""
     what = "fastsim_mm_scan"
     dev = _check_tensors(what, dict(code=code, val=val, lane_f=lane_f, lane_rows=lane_rows),
                          dict(code=torch.int32, val=torch.float64, lane_f=torch.float64,
@@ -598,11 +599,13 @@ def fastsim_mm_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Te
     out = torch.empty((n, 2), dtype=torch.float64, device=dev)
     if n == 0:
         return out
+    code, val = _aligned(code), _aligned(val)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fastsim_mm_scan(code.data_ptr(), val.data_ptr(), lane_f.data_ptr(),
-                                 lane_rows.data_ptr(), n, out.data_ptr(), stream)
+        rc = lib.fastsim_mm_scan(code.data_ptr(), val.data_ptr(), code.numel(),
+                                 lane_f.data_ptr(), lane_rows.data_ptr(), n, out.data_ptr(),
+                                 stream)
     _build.raise_if(rc, lib.fastsim_error_string, "fastsim_mm_scan launch")
     launches["mm_scan"] += 1
     return out

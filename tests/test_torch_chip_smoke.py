@@ -303,6 +303,9 @@ def test_mm_bound_counts_rows_and_the_longest_lane():
     b = chip_smoke.mm_bound((code, val, lane_f, rows))
     assert b["lane_steps"] == 24
     assert b["serial_chain_ops"] == chip_smoke.CHAIN_OPS_PER_STEP * 10
+    assert b["longest_chain_steps"] == 10
+    row = chip_smoke.timed_row(2e-3, "events", b)      # the MM row's ns a row
+    assert row["ns_per_step"] == pytest.approx(200.0)
     want_bytes = (40 + 480 + 144 + 48 + 48) / chip_smoke.HBM_BYTES_PER_S * 1e3
     assert b["bytes_ms"] == pytest.approx(want_bytes)
     assert b["operations_ms"] == pytest.approx(
@@ -414,6 +417,9 @@ ptxas info    : Used 128 registers, used 1 barriers, 1776 bytes cumulative stack
     ("_ZN41_GLOBAL__N__d005d734_9_jitarb_cu_af8ec1c113jitarb_kernelENS_6ParamsE",
      "jitarb_kernel"),
     ("_ZN43_GLOBAL__N__026d5794_10_fastsim_cu_4afe5d5417fastsim_mm_kernelEPKiPKdS3_PKxiPd",
+     "fastsim_mm_kernel"),
+    # the hash's digits "46" spell a longer name that also ends in the kernel's
+    ("_ZN43_GLOBAL__N__19f46cba5_10_fastsim_cu_4afe5d5417fastsim_mm_kernelEPKiPKdxS3_PKxPd",
      "fastsim_mm_kernel"),
     ("_Z3foov", "_Z3foov"),
 ])

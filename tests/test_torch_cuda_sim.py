@@ -204,6 +204,41 @@ def test_scan_odd_lo_and_a_ragged_tail(model):
     assert torch.equal(kernel, out[keep])
 
 
+def test_mm_scan_odd_lo_and_a_ragged_tail():
+    """The MM-only kernel's ring at its edges: a lane that starts at an odd
+    row in the middle of a block, a lane shorter than one chunk and one with
+    no rows, a block of ~13 chunks that starts at an odd row, and columns
+    whose row count is not a multiple of 4 (the thread reads the last rows
+    itself): the kernel equals its plain version, and the numpy lane on
+    whole traces; columns off a 16-byte edge are copied first."""
+    need_cuda()
+    short, long_ = traces([31], n=297) + traces([32], n=6050)
+    cfgs = CFGS[:3]
+    cols, where, _ = fastsim.mm_scan_inputs([short, long_], cfgs, None)
+    args = tuple(torch.as_tensor(c, device="cuda") for c in cols)
+    rows = args[3]
+    n_short = int(rows[0, 1])
+    assert args[0].numel() % 4 and n_short % 2 and n_short < 256
+    assert [t for t, _, _ in where] == [0, 0, 0, 1, 1, 1]
+    assert int(rows[3, 1] - rows[3, 0]) > 12 * 256
+    rows[0, 0] = 7                           # from an odd row in the middle of a block
+    rows[1] = torch.tensor([50, 50])         # no rows
+    rows[4, 0] = n_short + 1000              # from an odd row in the middle of the long block
+    kernel = fsk.fastsim_mm_scan_cuda(*args)
+    assert torch.equal(kernel.cpu(), fsk.fastsim_mm_scan_plain(*args).cpu())
+    assert kernel[1].tolist() == [0.0, 0.0]
+    # the columns one row on (off their 16-byte edge), the lanes that start
+    # past row 0
+    keep = [0, 3, 4, 5]
+    shifted = (args[0][1:], args[1][1:], args[2][keep], rows[keep] - 1)
+    assert args[0][1:].data_ptr() % 16
+    assert torch.equal(fsk.fastsim_mm_scan_cuda(*shifted), kernel[keep])
+    want = [[fastsim._run_numpy_params(t, c, P.for_config(c))[0] for c in cfgs]
+            for t in (short, long_)]
+    got = fastsim.sweep_traces([short, long_], cfgs, backend="cuda")
+    assert [[key(g) for g in row] for row in got] == [[key(w) for w in row] for row in want]
+
+
 def test_scan_shares_past_the_shared_table():
     """A lane with more epoch shares than a CTA stages reads them from
     device memory (the launch reports it), beside a lane whose shares fit;
