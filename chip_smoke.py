@@ -135,6 +135,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      in shared or device memory, the exact-division flags), and the host's
      share (lowering, analysis, packing, upload, readback; the end-to-end
      sweeps timed on traces whose analysis is not cached).
+     First on its main path, a telemetry run with stage events
+     (tests/test_obs.py's skewed DLRM-2/BERT-1 workload under lpt on 4
+     RASA-WLBP cores at 32 B/cycle, a "cuda" chip): its ChipTelemetry equal
+     to a numpy chip's, segment by segment and bucket by bucket, each
+     segment's events bit-equal three ways (the event kernel, its plain
+     version on the card on a worker, the Python copy), and its Perfetto
+     trace written under build/ and parsed back.
      ``python3 chip_smoke.py simulate`` runs the build and this phase
      alone, and its last line says so ("phases": ["build", "simulate"]);
  12. the serving batcher (src/repro_torch/serving/simbatch.py over the
@@ -161,7 +168,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      full-width settle from its trace (and an untraced rerun's host clock),
      its bound, the latency bound of its dependent chain and ns a step on
      the longest lane, ptxas's registers and spill bytes, the launches by
-     path, and the program's rounds and blocks.
+     path, and the program's rounds and blocks.  Then telemetry with stage
+     events on "cuda" (the incremental client): the 200 requests under
+     occupancy against the numpy client's telemetry, and the event kernel
+     against its plain version (on the card) on that run's replay; full
+     width x 4 under occupancy, its report equal to the telemetry-off one;
+     the event kernel's row: the device time of that replay, its bound and
+     latency bound, ns a step on the longest lane, ptxas's registers and
+     spills, and the host seconds of the Python copy on the same segments,
+     events compared.
      ``python3 chip_smoke.py batcher`` runs the build and this phase alone
      ("phases": ["build", "batcher"]).
 The line before the last is the card line, the one before it the kernels'
@@ -2004,6 +2019,137 @@ PREDICTION_STEP = (
     "6's main path only; both kernels without spills.")
 
 
+# the telemetry runs (tests/test_obs.py:52-53): the skewed closed workload under lpt on
+# 4 RASA-WLBP cores sharing 32 bytes/cycle (phase 11), and phase 12's traces
+TELE_WORKLOAD = ("DLRM-2", "BERT-1", "DLRM-2", "DLRM-2")
+TELE_CHIP = dict(n_cores=4, design="RASA-WLBP", bw_bytes_per_cycle=32.0)
+PREDICTION_EVENTS = (
+    "fastsim_events_kernel (the shared step with a recorder, one CTA a segment, 40 bytes "
+    "written a position): phase 12's full-width telemetry replay (qwen3-1.7b, 1 layer, x 4 "
+    "under occupancy; the longest lane a prefill segment of ~0.3-0.6 M steps) 100-400 ms "
+    "of device time, 250-700 ns a step on the longest lane, 1.5-4x its latency bound, the "
+    "row writes hidden behind the chain; the Python replay of the same segments 4-15 s on "
+    "the host (2.6 M instructions at 1.5-5 us each, the host loaded by phase 12's "
+    "workers); the scan, MM-only and arbitration kernels' SASS unchanged.")
+EVENT_FIELDS = ("tl_index", "tl_start", "tl_stall", "tl_bytes", "ts_index", "ts_start",
+                "ts_stall", "mm_index", "mm_skip", "mm_wl_start", "mm_ff_start", "mm_ff_end",
+                "mm_fs_end", "mm_dr_end")
+
+
+def require_same_events(what: str, got, want) -> None:
+    """Two lists of StreamEvents (or None), bit for bit, column by column."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} replays against {len(want)}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None):
+            raise RuntimeError(f"{what}: segment {k} has events on one side only")
+        if g is None:
+            continue
+        for f in EVENT_FIELDS:
+            a, b = getattr(g, f), getattr(w, f)
+            if a.dtype != b.dtype or a.shape != b.shape or not (a == b).all():
+                raise RuntimeError(f"{what}: segment {k}'s {f} differs")
+        if (g.cycles, g.bw_stall, g.wl_skips) != (w.cycles, w.bw_stall, w.wl_skips):
+            raise RuntimeError(f"{what}: segment {k}'s totals differ")
+
+
+def require_same_telemetry(what: str, got, want) -> int:
+    """Two ChipTelemetry field for field: every segment field (events bit
+    for bit), every bucket, the share and active traces, the marks.
+    Returns the number of stage events compared."""
+    for f in ("kind", "design", "n_cores", "epoch_cycles", "window", "share_trace",
+              "active_trace", "core_weights", "marks"):
+        if getattr(got, f) != getattr(want, f):
+            raise RuntimeError(f"{what}: the telemetry's {f} differs")
+    if (got.attribution.window, [dataclasses.astuple(c) for c in got.attribution.cores]) != \
+            (want.attribution.window, [dataclasses.astuple(c) for c in want.attribution.cores]):
+        raise RuntimeError(f"{what}: the buckets differ")
+    if len(got.segments) != len(want.segments):
+        raise RuntimeError(f"{what}: {len(got.segments)} segments against {len(want.segments)}")
+    for g, w in zip(got.segments, want.segments):
+        for f in dataclasses.fields(w):
+            if f.name != "events" and getattr(g, f.name) != getattr(w, f.name):
+                raise RuntimeError(f"{what}: segment {w.sid}'s {f.name} differs")
+    require_same_events(what, [s.events for s in got.segments],
+                        [s.events for s in want.segments])
+    return sum(len(s.events) for s in got.segments if s.events is not None)
+
+
+def replay_calls(calls) -> tuple[list, list, list, list]:
+    """The traces, engines, params and kernel events of the replay_many
+    calls a run made (chip_smoke's capture), in call order."""
+    out: tuple[list, list, list, list] = ([], [], [], [])
+    for args, kw, events in calls:
+        for part, got in zip(out, (*args[:3], events)):
+            part.extend(got)
+    return out
+
+
+def replay_plain(traces, cfgs, params, backend: str):
+    """The event replay of the given lanes (on a worker process or a
+    thread): "torch" its plain version on the card, "numpy" the Python
+    copy.  Returns the events and the seconds (host clock, synchronised on
+    the card)."""
+    import torch
+    from repro_torch.obs import record
+    card = backend == "torch"
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = record.replay_many(traces, cfgs, params, backend=backend, device=DEV)
+    if card:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def events_bound(traces, cfgs, params) -> dict:
+    """The event replay's bound over the given lanes: its columns (12 bytes
+    a position) and lane tables read once, its event rows (40 bytes a
+    position) and results written once, over the HBM rate; each lane's fp64
+    operations (SCAN_OPS; a grant for every TL and charged TS of a bucket
+    lane; the walk steps this run took, read from a full-stream scan of the
+    same lanes) over the fp64 peak; beside it the longest lane's chain."""
+    from repro_torch.kernels import fastsim_scan as fsk
+    from repro_torch.obs import record
+    nbytes, ops = 0.0, 0.0
+    for bucket, idxs in record.lane_kinds(params).items():
+        args, _ = record.event_inputs(traces, cfgs, params, idxs, DEV)
+        out, _ = fsk.fastsim_scan_cuda(*args, bucket=bucket)
+        charge = (args[2][:, fsk.LANE_FIELDS.index("charge")] != 0).tolist()
+        ops += SCAN_OPS["walk"] * float(out[:, 4].sum())
+        for i, ch in zip(idxs, charge):
+            t = traces[i]
+            ops += (SCAN_OPS["tl"] * t.n_tl + SCAN_OPS["ts"] * t.n_ts + SCAN_OPS["mm"] * t.n_mm
+                    + (SCAN_OPS["grant"] * (t.n_tl + (t.n_ts if ch else 0)) if bucket else 0))
+        nbytes += sum(a.numel() * a.element_size() for a in args)
+        nbytes += 40 * args[0].numel() + 8 * len(fsk.EVENT_OUT_FIELDS) * len(idxs)
+    fields = bound_fields(nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_PEAK * 1e3)
+    longest = max(len(t) for t in traces)
+    fields.update(serial_chain_ops=CHAIN_OPS_PER_STEP * longest, longest_chain_steps=longest,
+                  lane_steps=sum(len(t) for t in traces))
+    return fields
+
+
+def events_kernel_ms(torch, traces, cfgs, params, long: bool = False) -> tuple[float, str]:
+    """Device ms of the event kernel's launches (one a load-model kind) on
+    the given lanes' inputs: from device_ms's traces (events where none
+    held every record), or with ``long`` (a launch of a good part of a
+    second) CUDA events around one call after a warm-up."""
+    from repro_torch.kernels import fastsim_scan as fsk
+    from repro_torch.obs import record
+    groups = [(record.event_inputs(traces, cfgs, params, idxs, DEV)[0], bucket)
+              for bucket, idxs in record.lane_kinds(params).items()]
+
+    def run():
+        return [fsk.fastsim_events_cuda(*a, bucket=b) for a, b in groups]
+
+    if long:
+        run()
+        torch.cuda.synchronize()
+        return event_ms(torch, run, 1), "events"
+    return kernel_ms(torch, run, fsk.KERNEL_NAMES["events"], 1)
+
+
 def sweep_schedule():
     """(shares, tail) of the bucket sweep's core (see SWEEP_DRAINS)."""
     return (tuple(CHIP["bw"] / (1 + sum(d > e for d in SWEEP_DRAINS))
@@ -2231,11 +2377,14 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
     from repro_torch.core.tiling import ALG1_POLICY
     from repro_torch.core.trace import gemm_trace
     from repro_torch.kernels import fastsim_scan as fsk
+    from repro_torch.multicore import chip as chip_mod
+    from repro_torch.obs import TelemetryConfig, record, timeline, write_trace
     print("prediction (written before the first run of phase 11): " + PREDICTION_SIM)
     print("prediction (written before the redesigned step's first timed run): "
           + PREDICTION_STEP)
     print("prediction (written before the redesigned MM-only kernel's first timed run): "
           + PREDICTION_MM)
+    print("prediction (written before the event kernel's first run): " + PREDICTION_EVENTS)
     fixtures = ROOT / "tests" / "fixtures"
     fig5 = json.loads((fixtures / "fig5_runtime.json").read_text())
     fig7 = json.loads((fixtures / "fig7_batch.json").read_text())
@@ -2274,8 +2423,26 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                                         for k in range(len(SIM_CORES)))]
     pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
-    with pool:
+    # one more worker for the telemetry replay's plain version on the card (~40 k
+    # lockstep steps), started as soon as the main path's telemetry run gives its inputs
+    tele_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                                    initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
+    with pool, tele_pool:
         t_pool = time.perf_counter()
+        fsk.reset_launches()        # ---- the main path: counts from 0 ----
+        # 0. telemetry with stage events on a 4-core cuda chip: tests/test_obs.py's
+        # skewed workload under lpt, its stage replay one launch of the event kernel;
+        # first, so that its replay's plain version (~40 k lockstep steps on the card,
+        # on a worker of its own) starts at once
+        tele_chip = chip_mod.ChipConfig(backend="cuda", **TELE_CHIP)
+        tele_specs = [core.TABLE_I[k] for k in TELE_WORKLOAD]
+        tcfg = TelemetryConfig(enabled=True, stages=True)
+        tele: dict = {}
+        tele_calls = clock("telemetry_cuda", lambda: capture(
+            timeline, "replay_many", lambda: tele.update(cuda=chip_mod.simulate_chip(
+                tele_specs, tele_chip, scheduler="lpt", telemetry=tcfg))))
+        tele_in = replay_calls(tele_calls)
+        tele_plain = tele_pool.submit(replay_plain, *tele_in[:3], "torch")
         # 5 (submitted first, checked below). Every kernel variant on DLRM-2
         # and on random streams: its plain version on the card, on a worker
         small = gemm_trace(core.TABLE_I[SIM_PLAIN_LAYER], ALG1_POLICY)
@@ -2317,8 +2484,7 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                        lambda: {s.name: gemm_trace(s, ALG1_POLICY) for s in table})
         clock("lower_batch_sweep", lambda: [gemm_trace(s, ALG1_POLICY) for s in full7])
         report["table_i_instructions"] = {k: len(t) for k, t in traces.items()}
-
-        fsk.reset_launches()        # ---- the main path: counts from 0 ----
+        # (the lowering above launches nothing: the main path goes on)
         # 1. Table I x 8 designs: the MM-only kernel, one launch
         table_cuda = clock("table_i_cuda", uncached(
             lambda: simulator.sweep_workload(table, backend="cuda")))
@@ -2385,6 +2551,7 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
 
         # the numpy lane's results: the main path's comparisons
         numpy = {key: [f.result() for f in futs] for key, futs in oracle.items()}
+        tele_plain_events, host["telemetry_plain"] = tele_plain.result()
         host["numpy_pool_wall"] = time.perf_counter() - t_pool
     for key, res in numpy.items():
         host[f"{key}_numpy_lowering"] = sum(r[1] for r in res)
@@ -2416,6 +2583,35 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                               for s, r in zip(full7, batch_cuda)}
     report["cores"] = {k: {"cycles": r.cycles, "bw_stall_cycles": r.bw_stall_cycles,
                            "last_grant": lg} for k, (r, lg) in zip(SIM_CORES, cores_cuda)}
+    # 0. the telemetry against a numpy chip's, its events three ways, the export
+    tele["numpy"] = clock("telemetry_numpy", lambda: chip_mod.simulate_chip(
+        tele_specs, dataclasses.replace(tele_chip, backend="numpy"), scheduler="lpt",
+        telemetry=tcfg))
+    # ChipReport's telemetry field compares by identity: every other field
+    if [dataclasses.replace(r, telemetry=None) for r in (tele["cuda"], tele["numpy"])] != \
+            [dataclasses.replace(tele["numpy"], telemetry=None)] * 2:
+        raise RuntimeError("simulate: the telemetry run's report differs from the numpy chip's")
+    n_events = require_same_telemetry("simulate: telemetry, cuda against numpy",
+                                      tele["cuda"].telemetry, tele["numpy"].telemetry)
+    copy, host["telemetry_python_replay"] = replay_plain(*tele_in[:3], "numpy")
+    require_same_events("simulate: the event kernel against the Python copy", tele_in[3], copy)
+    require_same_events("simulate: the event kernel against its plain version (on the card)",
+                        tele_in[3], tele_plain_events)
+    path = write_trace(tele["cuda"].telemetry, ROOT / "build" / "chip_smoke" / "closed.json")
+    doc = json.loads(path.read_text())
+    if doc["otherData"]["schema"] != "rasa-trace/1":
+        raise RuntimeError("simulate: the written trace is not rasa-trace/1")
+    report["telemetry"] = {
+        "workload": f"{'/'.join(TELE_WORKLOAD)} under lpt on {TELE_CHIP}",
+        "segments": len(tele["cuda"].telemetry.segments), "stage_events": n_events,
+        "lane_steps": sum(len(t) for t in tele_in[0]), "replay_calls": len(tele_calls),
+        "attribution": tele["cuda"].telemetry.attribution.fractions(),
+        "trace_file_bytes": path.stat().st_size, "trace_events": len(doc["traceEvents"]),
+        "stage_events_dropped": doc["otherData"].get("stage_events_dropped", 0),
+        "plain_on_card_s": host["telemetry_plain"]}
+    print("simulate: telemetry (stages) on the cuda chip equals the numpy chip's, every "
+          "segment's events bit-equal three ways (kernel, plain version on the card, Python "
+          f"copy), {path.relative_to(ROOT)} parsed back: " + json.dumps(report["telemetry"]))
 
     # 6. times: each kernel on DLRM-2 (beside its plain version) and at the main path
     lanes_e = [(0, c, models["epoch"]) for c in cfgs]
@@ -2561,13 +2757,15 @@ def full_requests(n: int):
                        **FULL_KW)
 
 
-def batch_numpy(what: str, n: int, policy: str, variant: str | None = None):
+def batch_numpy(what: str, n: int, policy: str, variant: str | None = None,
+                stages: bool = False):
     """The port's numpy client on a worker process: ``what`` names the trace
     (``trace``: TRACE_KW; ``full``: the full-width model trace; ``sweep x<f>``:
-    a variant of the rate sweep).  Returns the BatchReport and its seconds
-    (lowering included)."""
+    a variant of the rate sweep); ``stages``: with telemetry and its stage
+    events.  Returns the BatchReport and its seconds (lowering included)."""
     import dataclasses as dc
     from repro_torch.multicore import chip as chip_mod
+    from repro_torch.obs import OFF, TelemetryConfig
     from repro_torch.serving.simbatch import run_batcher, synthetic_trace
     t0 = time.perf_counter()
     if what == "full":
@@ -2580,7 +2778,8 @@ def batch_numpy(what: str, n: int, policy: str, variant: str | None = None):
         requests = synthetic_trace(n, **TRACE_KW)
     chip = batch_chip(chip_mod, variant, "numpy") if variant \
         else chip_mod.ChipConfig(backend="numpy", **BATCH_CHIP)
-    rep = run_batcher(requests, chip, policy=policy, batch_size=1)
+    rep = run_batcher(requests, chip, policy=policy, batch_size=1,
+                      telemetry=TelemetryConfig(enabled=True, stages=True) if stages else OFF)
     return rep, time.perf_counter() - t0
 
 
@@ -2694,7 +2893,7 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
     the rate sweep as one launch of three CTAs.  Then the kernel's row."""
     import dataclasses as dc
     import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     import numpy as np
     from repro_torch.core.fastsim import SNAP_STRIDE
@@ -2703,13 +2902,14 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
     from repro_torch.kernels import jitarb as kj
     from repro_torch.multicore import chip as chip_mod
     from repro_torch.multicore import jitarb
-    from repro_torch.obs import OFF
+    from repro_torch.obs import OFF, TelemetryConfig, timeline
     from repro_torch.serving import simbatch
     from repro_torch.serving.simbatch import (report_from_finishes, run_batcher,
                                               synthetic_trace)
     print("prediction (written before the first run of phase 12): " + PREDICTION_BATCH)
     print("prediction (written before the redesigned step's first timed run): "
           + PREDICTION_STEP)
+    print("prediction (written before the event kernel's first run): " + PREDICTION_EVENTS)
     host: dict = {}
 
     def clock(key, fn):
@@ -2730,7 +2930,8 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
     plain_pool, plain_in, plain_res = start_batch_plain()
     pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
-    with pool, plain_pool:
+    replay_thread = ThreadPoolExecutor(1)
+    with pool, plain_pool, replay_thread:
         t_pool = time.perf_counter()
         futs = {
             "cases": {(p, v): pool.submit(batch_numpy, "trace", BATCH_N, p, v)
@@ -2738,6 +2939,7 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
             "full": {p: pool.submit(batch_numpy, "full", FULL_N_NUMPY, p)
                      for p in ("occupancy", "phase_aware")},
             "scale": pool.submit(batch_numpy, "trace", SCALE_N, "fixed"),
+            "telemetry": pool.submit(batch_numpy, "trace", BATCH_N, "occupancy", None, True),
             "sweep": [pool.submit(batch_numpy, f"sweep x{f}", SWEEP_N, "fixed")
                       for f in RATE_FACTORS]}
 
@@ -2811,12 +3013,29 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
         before = kj.launches["jitarb"]
         sweep_fins = clock("sweep_settle", lambda: jitarb.finish_times_many(plans))
         sweep_launches = kj.launches["jitarb"] - before
+        # 5. telemetry with stage events (run_batcher takes the incremental client when
+        # telemetry is on): BATCH_N requests, then full width x FULL_N_NUMPY, each run's
+        # stage replay one launch of the event kernel a load-model kind
+        tcfg = TelemetryConfig(enabled=True, stages=True)
+        tele: dict = {}
+        tele_calls = {
+            "trace": clock("telemetry_trace", lambda: capture(
+                timeline, "replay_many", lambda: tele.update(trace=run_batcher(
+                    trace, cuda_chip, policy="occupancy", batch_size=1, telemetry=tcfg)))),
+            "full": clock(f"telemetry_full{FULL_N_NUMPY}", lambda: capture(
+                timeline, "replay_many", lambda: tele.update(full=run_batcher(
+                    full4[:FULL_N_NUMPY], cuda_chip, policy="occupancy", batch_size=1,
+                    telemetry=tcfg))))}
         main_launches = {**kj.launches, **fsk.launches}   # ---- the main path ends ----
+        # the Python copy of the full-width replay, the plain yardstick, on a thread
+        # while the main process waits for the plain program's workers below
+        python_replay = replay_thread.submit(replay_plain,
+                                             *replay_calls(tele_calls["full"])[:3], "numpy")
         main_paths = {"jitarb": path_counts(kj.launch_paths, JITARB_PATH_FIELDS),
                       "scan": path_counts(fsk.launch_paths, SCAN_PATH_FIELDS)}
         if sweep_launches != 1:
             raise RuntimeError(f"batcher: the sweep took {sweep_launches} launches")
-        for key in ("jitarb", "scan", "mm_scan"):
+        for key in ("jitarb", "scan", "mm_scan", "events"):
             if not main_launches[key]:
                 raise RuntimeError(f"batcher: the main path never launched {key}")
 
@@ -2853,12 +3072,21 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
                    full_reports[FULL_N_NUMPY][pol], want)
         want, numpy_s["scale"] = futs["scale"].result()
         expect(f"scale x{SCALE_N}, against the numpy client", scale_rep, want)
+        want, numpy_s["telemetry"] = futs["telemetry"].result()
+        expect(f"telemetry x{BATCH_N}, against the numpy client", tele["trace"], want)
+        tele_events = require_same_telemetry(
+            f"batcher: telemetry x{BATCH_N} (occupancy), cuda against the numpy client",
+            tele["trace"].telemetry, want.telemetry)
+        python_events, host["telemetry_python_replay"] = python_replay.result()
         for f, v, fin, fut in zip(RATE_FACTORS, variants, sweep_fins, futs["sweep"]):
             want, numpy_s[f"sweep x{f}"] = fut.result()
             expect(f"sweep x{f}", report_from_finishes(v, cuda_chip, fin), want)
         host["numpy_pool_wall"] = time.perf_counter() - t_pool
     print("batcher: every kernel report equals the numpy client's and the cuda "
           f"client's; launches {main_launches}; numpy client s " + json.dumps(numpy_s))
+    events_row = telemetry_row(torch, card, ptxas, tele, tele_calls, tele_events,
+                               full_reports[FULL_N_NUMPY]["occupancy"], main_launches["events"],
+                               python_events, host["telemetry_python_replay"])
     print("batcher: the main path's launches by path: " + json.dumps(main_paths))
     ptxas = ptxas.get("jitarb", {})
 
@@ -2913,7 +3141,63 @@ def batcher_phase(torch, card: str, ptxas: dict) -> list[dict]:
         "scale_stats": scale_st,
         "work": f"{FULL_ARCH} FULL width, {FULL_LAYERS} of 28 layers, {FULL_N_NUMPY} requests "
                 "(prompts 32/64, 1-2 decode steps) on 4 RASA-WLBP cores at 32 B/cycle, "
-                "occupancy, one launch"}]
+                "occupancy, one launch"}, events_row]
+
+
+def telemetry_row(torch, card: str, ptxas: dict, tele: dict, calls: dict, n_events: int,
+                  off_report, launches: int, copy: list, copy_s: float) -> dict:
+    """Phase 12's telemetry checks and the event kernel's row: the BATCH_N
+    run's replay against its plain version on the card (on the same
+    inputs, the kernel's time beside it); the full-width run's report
+    against the telemetry-off one, its replay's device time, bound and
+    latency bound, and the Python copy's events (``copy``, on the same
+    segments, ``copy_s`` host seconds) against the kernel's."""
+    from repro_torch.kernels import fastsim_scan as fsk
+    if tele["full"] != off_report:
+        raise RuntimeError("batcher: the full-width telemetry run's report differs from the "
+                           "telemetry-off report")
+    small, full = replay_calls(calls["trace"]), replay_calls(calls["full"])
+    plain, plain_s = replay_plain(*small[:3], "torch")
+    require_same_events("batcher: the event kernel against its plain version (on the card), "
+                        f"{BATCH_N} requests", small[3], plain)
+    kernel_small_ms, _ = events_kernel_ms(torch, *small[:3])
+    ms, timer = events_kernel_ms(torch, *full[:3], long=True)
+    row = timed_row(ms, timer, events_bound(*full[:3]))
+    require_same_events("batcher: the event kernel against the Python copy, full width",
+                        full[3], copy)
+    full_events = sum(len(e) for e in full[3])
+    print(f"batcher: the full-width replay: {ms:.1f} ms ({timer}), latency bound "
+          f"{row['latency_bound_ms']:.1f} ms ({ms / row['latency_bound_ms']:.1f}x), "
+          f"{row['ns_per_step']:.1f} ns a step on the longest lane "
+          f"({row['longest_chain_steps']} steps); the Python copy {copy_s:.2f} s on the host; "
+          f"{len(full[0])} segments, {full_events} events bit-equal | {card}")
+    return {
+        "name": fsk.KERNEL_NAMES["events"], "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fastsim.cu",
+        "replaces": "src/repro/obs/record.py:72 (replay_events, a Python loop)",
+        "launches": launches, "max_abs_err": 0.0, "ms": ms, "timer": timer,
+        "plain_ms": plain_s * 1e3,
+        "plain_work": f"the stage replay of {BATCH_N} TRACE_KW requests under occupancy "
+                      f"({len(small[0])} segments, {sum(len(t) for t in small[0])} positions; "
+                      "the plain version on the card, host clock)",
+        "kernel_ms_plain_work": kernel_small_ms,
+        "python_replay_s": copy_s,
+        "python_replay_note": "the Python copy of the reference's loop on the same segments "
+                              "(host clock, on a thread of the main process while it waits "
+                              "for phase 12's plain-program workers), events bit-equal",
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "latency_bound_ms": row["latency_bound_ms"],
+        "serial_chain_ops": row["serial_chain_ops"], "lane_steps": row["lane_steps"],
+        "ns_per_step": row["ns_per_step"], "longest_lane_steps": row["longest_chain_steps"],
+        "lane_steps_per_s": row["lane_steps_per_s"],
+        "ptxas": {k: v for k, v in ptxas.get("fastsim", {}).items()
+                  if k.startswith(fsk.KERNEL_NAMES["events"])},
+        "library_ms": None, "library_note": "none: no PyTorch call computes the replay",
+        "segments": len(full[0]), "stage_events": full_events,
+        "stage_events_compared_trace": n_events,
+        "work": f"the stage replay of {FULL_ARCH} FULL width ({FULL_LAYERS} of 28 layers) x "
+                f"{FULL_N_NUMPY} requests under occupancy on 4 RASA-WLBP cores at 32 B/cycle "
+                f"({len(full[0])} segments, one launch a load-model kind)"}
 
 
 def main() -> int:

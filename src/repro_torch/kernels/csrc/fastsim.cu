@@ -1,11 +1,16 @@
-// The RASA pipeline simulator's two scan lanes, hand-written for Hopper
-// (sm_90a), with a plain C interface for ctypes (kernels/fastsim_scan.py).
+// The RASA pipeline simulator's two scan lanes and the telemetry's event
+// replay, hand-written for Hopper (sm_90a), with a plain C interface for
+// ctypes (kernels/fastsim_scan.py).
 //
-// Replaces the JAX package's two lax.scan programs in core/fastsim.py:
+// Replaces the JAX package's two lax.scan programs in core/fastsim.py, and
+// the Python loop of its telemetry's stage replay:
 //   fastsim_scan     <- _sim_chunk_fn (fastsim.py:813), the full-stream
 //                       scan, vmapped over designs, cores or packed segments
 //   fastsim_mm_scan  <- _jax_mm_fn (fastsim.py:1346), the MM-only scan of
 //                       the paper's port model
+//   fastsim_events   <- obs/record.py:72 (replay_events), the full-stream
+//                       recurrence of one segment a lane, recording every
+//                       instruction's events (a row of 5 doubles a position)
 //
 // A lane of fastsim_scan is one (trace, design) pair, one core, or a run of
 // packed segments; its trace is the range [lo, hi) of the shared code/val
@@ -30,6 +35,12 @@
 //    host), not divisions on the chain;
 //  * the carry stays in registers (the eight register ready-times by
 //    unrolled selects, never indexed memory).
+// The event replay (fastsim_events_kernel) is the full-stream chain with a
+// recorder: the step's template parameter, which the scan kernels leave at
+// NoEvents (their code does not change), writes each instruction's events
+// to the row of its position (5 doubles; a TL/TS fills two).  One CTA a
+// lane, a lane one segment.  A lane's one thread writes its rows in order,
+// 8-byte stores that the L2 merges; they leave the chain's critical path.
 // The MM-only kernel (below) has a shorter step, so the instructions a row
 // issues bound it as much as the row's chain.  One CTA a lane; its thread
 // streams the rows (a code and six doubles, 52 bytes) through the same TMA
@@ -125,6 +136,79 @@ __global__ void __launch_bounds__(kScanThreads) fastsim_scan_kernel(
   if (seg >= 0) o[4] = (double)s.walks;
   atomicAdd(out + (size_t)lane * kOut + 4, (double)s.walks);
   if (err) atomicMin(err_out + lane, (seg >= 0 ? seg : kTrailing) * 4 + err);
+}
+
+// an event row (a position of the columns): a TL's or TS's (start, stall), an
+// MM's (wl_start, ff_start, ff_end, fs_end, dr_end); and the event replay's
+// results per lane: t_end, bw_stall, wl_skips
+constexpr int kEvent = 5;
+constexpr int kEventOut = 3;
+
+// The step's recorder of the event replay: the instruction's events into the
+// row of its position
+struct EventRow {
+  double* row;
+
+  __device__ __forceinline__ void tl(double start, double stall) const {
+    row[0] = start;
+    row[1] = stall;
+  }
+  __device__ __forceinline__ void ts(double start, double stall) const { tl(start, stall); }
+  __device__ __forceinline__ void mm(double wl_start, double ff_start, double ff_end,
+                                     double fs_end, double dr_end) const {
+    row[0] = wl_start;
+    row[1] = ff_start;
+    row[2] = ff_end;
+    row[3] = fs_end;
+    row[4] = dr_end;
+  }
+};
+
+// The telemetry's stage replay (obs/record.py's replay_events) of one lane
+// (one segment, lane_i[blockIdx.x]'s range [lo, hi)): the full-stream step of
+// fastsim_step.cuh with a recorder, each instruction's events written to
+// events[pos], its results to out[lane] (kEventOut) and its error to
+// err_out[lane].  Set up as fastsim_scan_kernel's chain (shares in shared
+// memory where `sh_slots` hold them, the stream through the TMA ring).
+template <bool kBucket>
+__global__ void __launch_bounds__(kScanThreads) fastsim_events_kernel(
+    const int32_t* __restrict__ code, const double* __restrict__ val, long long n_col,
+    const double* __restrict__ lane_f, const long long* __restrict__ lane_i,
+    const double* __restrict__ shares, int sh_slots, double* __restrict__ events,
+    double* __restrict__ out, int* __restrict__ err_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bars[kStages];
+  const int lane = blockIdx.x;
+  const double* f = lane_f + (size_t)lane * kLaneF;
+  const long long* li_ = lane_i + (size_t)lane * kLaneI;
+  const long long lo = li_[0], hi = li_[1], n_sh = li_[3];
+  const double* sh_g = shares + li_[2];
+  double* sh_s = reinterpret_cast<double*>(smem + kRingBytes);
+  const bool staged = kBucket && n_sh <= sh_slots;
+  if (staged)
+    for (long long k = threadIdx.x; k < n_sh; k += blockDim.x) sh_s[k] = sh_g[k];
+  Ring ring(smem, 0, bars);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  const Design d(f);
+  const double E = f[12];
+  const Bucket bk{staged ? sh_s : sh_g, n_sh, E, f[13], f[14], f[15], 1.0 / E,
+                  f[kEpochPow2] != 0.0};
+  Carry s;
+  s.reset(bk.burst);
+  IssueClock clk(d, 0);
+  const int err = ring.run(code, val, n_col, lo, hi,
+                           [&](long long pos, int c, const double* vp) {
+                             return step<kBucket>(s, c, vp, clk.at(d, pos - lo), d, bk,
+                                                  EventRow{events + (size_t)pos * kEvent});
+                           });
+  double* o = out + (size_t)lane * kEventOut;
+  o[0] = s.t_end;
+  o[1] = s.bw_stall;
+  o[2] = (double)s.wl_skips;
+  err_out[lane] = err;
 }
 
 // per-lane fields of the MM-only scan: wl, fs, dr, wlbp, wls, pipe
@@ -296,6 +380,22 @@ cudaError_t launch_scan(const int32_t* code, const double* val, long long n_col,
   return cudaGetLastError();
 }
 
+template <bool kBucket>
+cudaError_t launch_events(const int32_t* code, const double* val, long long n_col,
+                          const double* lane_f, const long long* lane_i, const double* shares,
+                          int n_lanes, int sh_slots, double* events, double* out, int* err,
+                          cudaStream_t s) {
+  const size_t smem = kRingBytes + (size_t)sh_slots * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t r = cudaFuncSetAttribute(
+        fastsim_events_kernel<kBucket>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (r != cudaSuccess) return r;
+  }
+  fastsim_events_kernel<kBucket><<<n_lanes, kScanThreads, smem, s>>>(
+      code, val, n_col, lane_f, lane_i, shares, sh_slots, events, out, err);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,6 +443,33 @@ int fastsim_mm_scan(const void* code, const void* val, long long n_rows, const v
       static_cast<const double*>(lane_f), static_cast<const long long*>(lane_rows),
       static_cast<double*>(out));
   return (int)cudaGetLastError();
+}
+
+// The telemetry's event replay: lane l replays code/val[lane_i[l][0],
+// lane_i[l][1]) (columns of n_col positions, 16-byte aligned; the lanes'
+// ranges disjoint) under lane_f[l] and its shares, one CTA each.  events
+// [n_col, 5] and out [n_lanes, 3] zeroed by the caller, err [n_lanes] gets
+// each lane's error code (0: none).  max_sh: the most shares of a lane (a
+// lane with more than a CTA stages reads device memory).  Returns the
+// launch's cudaError_t.
+int fastsim_events(int bucket, const void* code, const void* val, long long n_col,
+                   const void* lane_f, const void* lane_i, const void* shares, int n_lanes,
+                   long long max_sh, void* events, void* out, void* err, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const int slots = bucket ? (int)(max_sh < kShareSlots ? max_sh : kShareSlots) : 0;
+  auto c = static_cast<const int32_t*>(code);
+  auto v = static_cast<const double*>(val);
+  auto f = static_cast<const double*>(lane_f);
+  auto li = static_cast<const long long*>(lane_i);
+  auto sh = static_cast<const double*>(shares);
+  auto ev = static_cast<double*>(events);
+  auto o = static_cast<double*>(out);
+  auto e = static_cast<int*>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t r =
+      bucket ? launch_events<true>(c, v, n_col, f, li, sh, n_lanes, slots, ev, o, e, s)
+             : launch_events<false>(c, v, n_col, f, li, sh, n_lanes, slots, ev, o, e, s);
+  return (int)r;
 }
 
 const char* fastsim_error_string(int err) {

@@ -1,7 +1,8 @@
 // The RASA pipeline simulator's per-instruction step, and the staging ring
-// that feeds it, shared by the full-stream scan kernel (fastsim.cu) and the
-// whole-trace arbitration kernel (jitarb.cu); the MM-only kernel (fastsim.cu)
-// streams its rows through the same ring, six doubles a position.
+// that feeds it, shared by the full-stream scan kernel and the telemetry's
+// event replay (fastsim.cu) and the whole-trace arbitration kernel
+// (jitarb.cu); the MM-only kernel (fastsim.cu) streams its rows through the
+// same ring, six doubles a position.
 //
 // The step transcribes the statements of core/fastsim.py::run_segment for
 // one instruction, in their order, with Python's max() (the first of equal
@@ -225,26 +226,40 @@ struct IssueClock {
   }
 };
 
+// What a step records: nothing (the scan kernels), or each instruction's
+// events (the telemetry's replay, obs/record.py): a TL's or TS's grant start
+// and its throttle stall, an MM's WL/FF/FS/DR window.  A recorder whose
+// methods do nothing compiles away.
+struct NoEvents {
+  __device__ __forceinline__ void tl(double, double) const {}
+  __device__ __forceinline__ void ts(double, double) const {}
+  __device__ __forceinline__ void mm(double, double, double, double, double) const {}
+};
+
 // One instruction of run_segment: `c` the packed code (kernels/fastsim_scan.py,
 // pack_code), `*vp` the tile bytes of a TL/TS or the valid rows of an MM (read
 // in the branch that needs it), `t_issue` the instruction's index over the
 // issue rate.  kBucket: the token bucket (else the port model: every request
 // granted when its port frees).  Any opcode other than TL/TS/MM (NOP padding,
-// OP_END in a lane that does not emit) leaves the carry as it is.  Returns 0,
-// or the error code of a grant.
-template <bool kBucket>
+// OP_END in a lane that does not emit) leaves the carry as it is.  `ev`
+// records the instruction's events, as obs/record.py's replay_events does.
+// Returns 0, or the error code of a grant.
+template <bool kBucket, class Events = NoEvents>
 __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_issue,
-                                   const Design& d, const Bucket& bk) {
+                                   const Design& d, const Bucket& bk,
+                                   const Events& ev = Events()) {
   const int op = c & 7;
   if (op == OP_TL) {
     const double port_start = t_issue > s.next_free ? t_issue : s.next_free;
     double start;
     if (!kBucket) {
       start = port_start;
+      ev.tl(start, 0.0);
     } else {
       const int err = bk.grant(s.tokens, s.bt, port_start, *vp, start, s.walks);
       if (err) return err;
       s.bw_stall += start - port_start;
+      ev.tl(start, start - port_start);
     }
     s.next_free = start + d.inv_load;
     if (start > s.last_grant) s.last_grant = start;
@@ -260,6 +275,7 @@ __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_
     double e;
     if (d.store_free) {
       e = t_avail + 1.0;
+      ev.ts(t_avail, 0.0);
     } else {
       const double port_start = t_avail > s.store_next ? t_avail : s.store_next;
       double start;
@@ -267,8 +283,10 @@ __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_
         const int err = bk.grant(s.tokens, s.bt, port_start, *vp, start, s.walks);
         if (err) return err;
         s.bw_stall += start - port_start;
+        ev.ts(start, start - port_start);
       } else {
         start = port_start;
+        ev.ts(start, 0.0);
       }
       s.store_next = start + d.inv_store;
       if (start > s.last_grant) s.last_grant = start;
@@ -284,31 +302,30 @@ __device__ __forceinline__ int step(Carry& s, int c, const double* vp, double t_
   const double t_ready_ac = pymax(t_issue, get_reg(s.reg, ar), get_reg(s.reg, cr));
   const double t_ready_b = pymax(t_issue, get_reg(s.reg, br));
   const bool reuse = d.wlbp && ((c >> 16) & 1);
-  double ff_start;
+  double wl_start, ff_start;
   if (reuse) {
+    wl_start = t_ready_b;   // the reference's wl_start of a skipped load (recorded only)
     ff_start = pymax(t_ready_ac, s.have_prev ? s.p_ff_end : 0.0);
     s.wl_skips += 1;
   } else if (d.wls) {
-    const double wl_start =
-        pymax(t_ready_b, s.have_prev ? s.p_ff_start : 0.0, s.wl_port_free);
+    wl_start = pymax(t_ready_b, s.have_prev ? s.p_ff_start : 0.0, s.wl_port_free);
     const bool hidden = s.have_prev && wl_start <= s.p_fs_end;
     const double weights_ready = hidden ? wl_start + 1.0 : wl_start + d.wl;
     ff_start = pymax(t_ready_ac, s.have_prev ? s.p_ff_end : 0.0, weights_ready);
     s.wl_port_free = wl_start + d.wl;
   } else if (d.pipe) {
-    const double wl_start =
-        pymax(t_ready_b, s.have_prev ? s.p_fs_end : 0.0, s.wl_port_free);
+    wl_start = pymax(t_ready_b, s.have_prev ? s.p_fs_end : 0.0, s.wl_port_free);
     ff_start = pymax(t_ready_ac, wl_start + d.wl, s.have_prev ? s.p_dr_end : 0.0);
     s.wl_port_free = wl_start + d.wl;
   } else {  // BASE
-    const double wl_start =
-        pymax(t_ready_b, s.have_prev ? s.p_dr_end : 0.0, s.wl_port_free);
+    wl_start = pymax(t_ready_b, s.have_prev ? s.p_dr_end : 0.0, s.wl_port_free);
     ff_start = pymax(t_ready_ac, wl_start + d.wl);
     s.wl_port_free = wl_start + d.wl;
   }
   const double ff_end = ff_start + *vp;
   const double fs_end = ff_end + d.fs;
   const double dr_end = fs_end + d.dr;
+  ev.mm(wl_start, ff_start, ff_end, fs_end, dr_end);
   set_reg(s.reg, cr, dr_end);
   if (dr_end > s.t_end) s.t_end = dr_end;
   s.p_ff_start = ff_start;

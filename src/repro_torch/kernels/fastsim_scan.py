@@ -15,6 +15,12 @@ Counterparts of the JAX package's two ``lax.scan`` programs in
     The MM-only scan of the paper's port model (``_jax_mm_fn``): the
     ``rasa_mm`` rows of a trace, with the loads' and the free stores' times
     solved on the host (``core/fastsim.py::_sweep_port_mm``).
+``fastsim_events``
+    The telemetry's stage replay (the JAX package's ``obs/record.py``
+    ``replay_events``, a Python loop there): the full-stream recurrence of
+    one segment a lane, recording every instruction's events -- a TL's or
+    TS's grant start and its throttle stall, an MM's WL/FF/FS/DR window --
+    into a row of its position (:data:`EVENT_FIELDS`).
 
 The columns (built by :mod:`repro_torch.core.fastsim`):
 
@@ -29,8 +35,11 @@ The columns (built by :mod:`repro_torch.core.fastsim`):
   ``[rows, 6]`` (:data:`MM_VAL_FIELDS`); ``lane_f`` ``[L, 6]``
   (:data:`MM_LANE_FIELDS`); ``lane_rows`` int64 ``[L, 2]``.
 
-``fastsim_scan``/``fastsim_mm_scan`` take the plain version for tensors on
-the CPU and launch the kernel for tensors on the card (or raise).  A request
+The full stream's columns also feed ``fastsim_events`` (its lanes may not
+overlap: each writes the event rows of its own positions).
+
+``fastsim_scan``/``fastsim_mm_scan``/``fastsim_events`` take the plain
+version for tensors on the CPU and launch the kernel for tensors on the card (or raise).  A request
 that the bucket can never grant raises the numpy lane's ``RuntimeError``.
 """
 
@@ -47,7 +56,8 @@ import torch
 from . import _build
 
 #: the entry points' device kernels, as named in csrc/fastsim.cu
-KERNEL_NAMES = {"scan": "fastsim_scan_kernel", "mm_scan": "fastsim_mm_kernel"}
+KERNEL_NAMES = {"scan": "fastsim_scan_kernel", "mm_scan": "fastsim_mm_kernel",
+                "events": "fastsim_events_kernel"}
 #: launches counted where the wrappers launch their kernels
 launches = {key: 0 for key in KERNEL_NAMES}
 #: the full-stream launches by path: (chains, where the shares were read --
@@ -65,6 +75,11 @@ MM_LANE_FIELDS = ("wl", "fs", "dr", "wlbp", "wls", "pipe")
 MM_VAL_FIELDS = ("a_const", "b_const", "c_const", "tm", "t_issue", "ts_issue")
 #: results per lane (and per emitted segment) of the full-stream scan
 OUT_FIELDS = ("t_end", "wl_skips", "bw_stall", "last_grant", "walks")
+#: an event row's fields by opcode (a row a position of the columns; the
+#: rows of other opcodes stay 0), and the event replay's results per lane
+EVENT_FIELDS = {"tl": ("start", "stall"), "ts": ("start", "stall"),
+                "mm": ("wl_start", "ff_start", "ff_end", "fs_end", "dr_end")}
+EVENT_OUT_FIELDS = ("t_end", "bw_stall", "wl_skips")
 
 # csrc/fastsim.cu's constants (core/trace.py's opcodes, core/isa.py's registers)
 OP_TL, OP_TS, OP_MM, OP_END = 0, 1, 2, 4
@@ -264,11 +279,14 @@ class PlainLanes:
         self.lanes = torch.arange(lane_f.shape[0], device=lane_f.device)
 
     def step(self, s: dict, c: torch.Tensor, v: torch.Tensor, li: torch.Tensor,
-             act: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+             act: torch.Tensor, err: torch.Tensor, rec: torch.Tensor | None = None
+             ) -> torch.Tensor:
         """run_segment's statements for one instruction of every lane where
         ``act``: ``c`` the packed code, ``v`` the value, ``li`` the
         instruction's index in its trace.  Updates the carry ``s`` in place
-        and returns the lanes' error codes."""
+        and returns the lanes' error codes.  With ``rec`` ([L, 5]) each lane
+        that steps a TL/TS/MM writes its event row there
+        (:data:`EVENT_FIELDS`); the other rows stay as they are."""
         f, bk, lanes = self.f, self.bk, self.lanes
         wlbp, wls, pipe, store_free, charge = (self.wlbp, self.wls, self.pipe, self.store_free,
                                                self.charge)
@@ -314,6 +332,14 @@ class PlainLanes:
             new_reg = torch.where(is_tl, done, new_reg)
             te = torch.where(is_tl & (done > te), done, te)
             te = torch.where(is_ts & (e_ts > te), e_ts, te)
+            if rec is not None:   # TL: (start, stall); TS: (start, stall)
+                zero = torch.zeros_like(start_tl)
+                stall_tl = start_tl - port_tl if self.bucket else zero
+                ev_ts = torch.where(store_free, t_avail, start_ts)
+                stall_ts = (torch.where(charged, start_ts - port_ts, zero)
+                            if self.bucket else zero)
+                for k, (a, b) in enumerate(((start_tl, ev_ts), (stall_tl, stall_ts))):
+                    rec[:, k] = torch.where(is_tl, a, torch.where(is_ts, b, rec[:, k]))
 
         if any_mm:                # ---- run_segment's rasa_mm rules ---------
             hp = s["have_prev"]
@@ -339,6 +365,10 @@ class PlainLanes:
             dr_end = fs_end + f["dr"]
             new_reg = torch.where(is_mm, dr_end, new_reg)
             te = torch.where(is_mm & (dr_end > te), dr_end, te)
+            if rec is not None:   # MM: (wl_start, ff_start, ff_end, fs_end, dr_end)
+                ev_wl = torch.where(reuse, t_ready_b, wl_start)
+                for k, x in enumerate((ev_wl, ff_start, ff_end, fs_end, dr_end)):
+                    rec[:, k] = torch.where(is_mm, x, rec[:, k])
             for key, new in (("pffs", ff_start), ("pffe", ff_end), ("pfse", fs_end),
                              ("pdre", dr_end)):
                 s[key] = torch.where(is_mm, new, s[key])
@@ -395,6 +425,40 @@ def fastsim_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tens
     out = torch.stack([s[key] for key in OUT_KEYS], 1)
     out[:, 4] += walks_done
     return out, seg_out
+
+
+def fastsim_events_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
+                         lane_i: torch.Tensor, shares: torch.Tensor, *,
+                         bucket: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the event replay: the plain full-stream lanes
+    (one segment each, :class:`PlainLanes`) stepped in lockstep, each step's
+    events kept in the row of its position.  Returns ``rows`` [N, 5] (a
+    TL's or TS's (start, stall), an MM's window: :data:`EVENT_FIELDS`; 0 at
+    other opcodes and outside the lanes) and ``out`` [L, 3]
+    (:data:`EVENT_OUT_FIELDS`)."""
+    dev = code.device
+    n = lane_f.shape[0]
+    lo, hi, sh_lo, sh_n = lane_i.unbind(1)
+    lanes = PlainLanes(lane_f, shares, sh_lo, sh_n, bucket=bucket)
+    s = plain_state(lanes.f["burst"])
+    err = torch.zeros(n, dtype=torch.int32, device=dev)
+    # one spare row at the end: the lanes that write nothing at a step write it
+    n_col = code.numel()
+    rows = torch.zeros((n_col + 1, 5), dtype=torch.float64, device=dev)
+    rec = torch.zeros((n, 5), dtype=torch.float64, device=dev)
+    steps = int((hi - lo).max()) if n else 0
+    for k in range(steps):
+        pos = lo + k
+        act = (pos < hi) & (err == 0)
+        at = torch.where(act, pos, 0)
+        c, v = code[at], val[at]
+        li = torch.full((n,), float(k), dtype=torch.float64, device=dev)
+        rec.zero_()                 # a TL's or TS's row ends in three zeros
+        err = lanes.step(s, c, v, li, act, err, rec)
+        wrote = act & (err == 0) & ((c & 7) <= OP_MM)
+        rows.index_copy_(0, torch.where(wrote, at, n_col), rec)
+    _raise_on(err)
+    return rows[:n_col], torch.stack([s["t_end"], s["stall"], s["skips"]], 1)
 
 
 def fastsim_mm_scan_plain(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
@@ -473,6 +537,8 @@ def _lib():
         lib.fastsim_scan.restype = i
         lib.fastsim_mm_scan.argtypes = [p, p, ll, p, p, i, p, p]
         lib.fastsim_mm_scan.restype = i
+        lib.fastsim_events.argtypes = [i, p, p, ll, p, p, p, i, ll, p, p, p, p]
+        lib.fastsim_events.restype = i
         lib.fastsim_error_string.argtypes = [i]
         lib.fastsim_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -497,6 +563,33 @@ def _check_ranges(what: str, ranges: torch.Tensor, length: int) -> None:
         raise ValueError(f"{what}: a lane's range lies outside [0, {length}]")
 
 
+def _check_stream_inputs(what: str, code: torch.Tensor, val: torch.Tensor,
+                         lane_f: torch.Tensor, lane_i: torch.Tensor,
+                         shares: torch.Tensor) -> torch.device:
+    """The full stream's columns and lane tables as the kernels read them:
+    on one CUDA device, their dtypes and shapes, the lanes' ranges inside
+    the columns and the shares, register ids inside the register file.
+    Returns the device."""
+    dev = _check_tensors(what, dict(code=code, val=val, lane_f=lane_f, lane_i=lane_i,
+                                    shares=shares),
+                         dict(code=torch.int32, val=torch.float64, lane_f=torch.float64,
+                              lane_i=torch.int64, shares=torch.float64))
+    n = lane_f.shape[0]
+    if (code.dim() != 1 or val.shape != code.shape or tuple(lane_f.shape) != (n, len(LANE_FIELDS))
+            or tuple(lane_i.shape) != (n, 4) or shares.dim() != 1 or not shares.numel()):
+        raise ValueError(f"{what}: want code/val [N], lane_f [L, {len(LANE_FIELDS)}], "
+                         f"lane_i [L, 4], shares [S >= 1]; got {tuple(code.shape)}, "
+                         f"{tuple(val.shape)}, {tuple(lane_f.shape)}, {tuple(lane_i.shape)}, "
+                         f"{tuple(shares.shape)}")
+    _check_ranges(what, lane_i[:, :2], code.numel())
+    _check_ranges(what, torch.stack([lane_i[:, 2], lane_i[:, 2] + lane_i[:, 3]], 1),
+                  shares.numel())
+    regs = torch.stack([(code >> s) & 15 for s in (4, 8, 12)])
+    if code.numel() and int(regs.max()) >= NUM_TREGS:
+        raise ValueError(f"{what}: register ids outside [0, {NUM_TREGS})")
+    return dev
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data does not start on a 16-byte
     edge (the kernel's bulk copies read 16-byte pieces from the start)."""
@@ -518,23 +611,8 @@ def fastsim_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tenso
     can never grant.  Columns whose data does not start on a 16-byte edge
     are copied first."""
     what = "fastsim_scan"
-    dev = _check_tensors(what, dict(code=code, val=val, lane_f=lane_f, lane_i=lane_i,
-                                    shares=shares),
-                         dict(code=torch.int32, val=torch.float64, lane_f=torch.float64,
-                              lane_i=torch.int64, shares=torch.float64))
+    dev = _check_stream_inputs(what, code, val, lane_f, lane_i, shares)
     n = lane_f.shape[0]
-    if (code.dim() != 1 or val.shape != code.shape or tuple(lane_f.shape) != (n, len(LANE_FIELDS))
-            or tuple(lane_i.shape) != (n, 4) or shares.dim() != 1 or not shares.numel()):
-        raise ValueError(f"{what}: want code/val [N], lane_f [L, {len(LANE_FIELDS)}], "
-                         f"lane_i [L, 4], shares [S >= 1]; got {tuple(code.shape)}, "
-                         f"{tuple(val.shape)}, {tuple(lane_f.shape)}, {tuple(lane_i.shape)}, "
-                         f"{tuple(shares.shape)}")
-    _check_ranges(what, lane_i[:, :2], code.numel())
-    _check_ranges(what, torch.stack([lane_i[:, 2], lane_i[:, 2] + lane_i[:, 3]], 1),
-                  shares.numel())
-    regs = torch.stack([(code >> s) & 15 for s in (4, 8, 12)])
-    if code.numel() and int(regs.max()) >= NUM_TREGS:
-        raise ValueError(f"{what}: register ids outside [0, {NUM_TREGS})")
     lanes = lane_i.cpu().numpy()
     markers = None
     if n_seg:
@@ -611,6 +689,43 @@ def fastsim_mm_scan_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Te
     return out
 
 
+def fastsim_events_cuda(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
+                        lane_i: torch.Tensor, shares: torch.Tensor, *,
+                        bucket: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The event replay through ``fastsim_events_kernel``, on the current
+    stream, one CTA a lane (one segment each; its shares in shared memory
+    where they fit).  Raises on a CPU tensor, on lanes outside the columns
+    or overlapping each other, on register ids outside the register file,
+    and on a lane the bucket can never grant.  Columns whose data does not
+    start on a 16-byte edge are copied first.  Returns what
+    :func:`fastsim_events_plain` returns."""
+    what = "fastsim_events"
+    dev = _check_stream_inputs(what, code, val, lane_f, lane_i, shares)
+    n = lane_f.shape[0]
+    lanes = lane_i.cpu().numpy()
+    ranges = lanes[lanes[:, 0] < lanes[:, 1], :2]
+    ranges = ranges[np.argsort(ranges[:, 0], kind="stable")]
+    if (ranges[1:, 0] < ranges[:-1, 1]).any():
+        raise ValueError(f"{what}: two lanes overlap (each writes its own positions' rows)")
+    rows = torch.zeros((code.numel(), 5), dtype=torch.float64, device=dev)
+    out = torch.zeros((n, len(EVENT_OUT_FIELDS)), dtype=torch.float64, device=dev)
+    err = torch.zeros(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return rows, out
+    code, val = _aligned(code), _aligned(val)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fastsim_events(int(bucket), code.data_ptr(), val.data_ptr(), code.numel(),
+                                lane_f.data_ptr(), lane_i.data_ptr(), shares.data_ptr(), n,
+                                int(lanes[:, 3].max()), rows.data_ptr(), out.data_ptr(),
+                                err.data_ptr(), stream)
+    _build.raise_if(rc, lib.fastsim_error_string, "fastsim_events launch")
+    launches["events"] += 1
+    _raise_on(err)
+    return rows, out
+
+
 def fastsim_scan(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
                  lane_i: torch.Tensor, shares: torch.Tensor, *, bucket: bool,
                  n_seg: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -629,3 +744,13 @@ def fastsim_mm_scan(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
     if code.device.type == "cpu":
         return fastsim_mm_scan_plain(code, val, lane_f, lane_rows)
     return fastsim_mm_scan_cuda(code, val, lane_f, lane_rows)
+
+
+def fastsim_events(code: torch.Tensor, val: torch.Tensor, lane_f: torch.Tensor,
+                   lane_i: torch.Tensor, shares: torch.Tensor, *,
+                   bucket: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The event replay: the plain version for tensors on the CPU, the
+    kernel for tensors on the card."""
+    if code.device.type == "cpu":
+        return fastsim_events_plain(code, val, lane_f, lane_i, shares, bucket=bucket)
+    return fastsim_events_cuda(code, val, lane_f, lane_i, shares, bucket=bucket)

@@ -57,7 +57,7 @@ from ..core.tiling import (ALG1_POLICY, GemmSpec, RegPolicy, lowered_stream)
 from ..core.timing import LoadStreamModel, PipelineSimulator, TimingResult
 from ..core.trace import (OP_MM, OP_TL, OP_TS, CompiledTrace, compile_stream,
                           compiled_trace)
-from ..obs.config import OFF, TelemetryConfig, require_off
+from ..obs.config import OFF, TelemetryConfig
 from .arbiter import (ArbiterTrace, SharePolicy, Span, SpanArbiter,
                       get_share_policy)
 from .faults import FaultPlan
@@ -536,7 +536,7 @@ class ChipReport:
         """Stall-cycle bucket decomposition of the run
         (:class:`repro_torch.obs.attribution.StallAttribution`), or ``None``
         on reports that predate the per-core compute fields."""
-        require_off("ChipReport.attribution")
+        from ..obs.attribution import attribute_segments
         if self.attribution_rows:
             return attribute_segments(self.n_cores, self.cycles,
                                       self.attribution_rows)
@@ -995,8 +995,12 @@ def _single_core_cycles(chip: ChipConfig, specs: Sequence[GemmSpec]) -> float:
 
 def _attach_telemetry(report: ChipReport, cluster: CoreCluster,
                       shards, telemetry: TelemetryConfig) -> ChipReport:
-    require_off("chip telemetry", telemetry)
-    return report
+    if not telemetry.enabled:
+        return report
+    from ..obs.timeline import build_chip_telemetry
+    return dataclasses.replace(
+        report, telemetry=build_chip_telemetry(cluster, shards, report,
+                                               telemetry))
 
 
 def _seg_compute_cycles(seg) -> float:
@@ -1112,7 +1116,10 @@ def assemble_online_report(sim, chip: ChipConfig, workload_name: str,
         if plan is not None else (),
         phase=phase,
     )
-    require_off("online telemetry", telemetry)
+    if telemetry.enabled:
+        from ..obs.timeline import build_online_telemetry
+        report = dataclasses.replace(
+            report, telemetry=build_online_telemetry(sim, telemetry))
     return report
 
 
@@ -1148,15 +1155,14 @@ def simulate_chip(workload, chip: ChipConfig | None = None, *,
     :mod:`repro_torch.multicore.scheduler`; the ``gang``/``gang_refine``
     schedulers also use ``partition`` to split dominant GEMMs across idle
     cores).  Extra keyword arguments construct the :class:`ChipConfig` when
-    none is given.  ``telemetry=TelemetryConfig(enabled=True)`` raises
-    :class:`NotImplementedError` until the rest of ``obs/`` is ported.
+    none is given.  ``telemetry=TelemetryConfig(enabled=True)`` attaches a
+    full :class:`repro_torch.obs.timeline.ChipTelemetry` to the report.
     """
     if chip is None:
         chip = ChipConfig(**chip_kwargs)
     elif chip_kwargs:
         raise TypeError(f"pass either a ChipConfig or config kwargs, not "
                         f"both: {sorted(chip_kwargs)}")
-    require_off("simulate_chip", telemetry)
     chip.require_card()
     if isinstance(workload, GemmSpec):
         return partitioned_chip_report(workload, chip, partition, telemetry)

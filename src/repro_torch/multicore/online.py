@@ -82,7 +82,7 @@ from ..core.tiling import GemmSpec
 from ..core.timing import PipelineSimulator, TimingResult
 from ..core.trace import (OP_MM, OP_TL, OP_TS, CompiledTrace, compile_stream,
                           compiled_trace, slice_trace)
-from ..obs.config import OFF, TelemetryConfig, require_off
+from ..obs.config import OFF, TelemetryConfig
 from .arbiter import Span, SpanArbiter
 from .chip import (ChipConfig, _lower_many, demands_bandwidth,
                    shared_traffic_bytes, stream_model_params)
@@ -183,7 +183,6 @@ class OnlineChip:
         if chip.arbitration != "epoch":
             raise ValueError("the online model is the epoch arbiter's "
                              "open-arrival form; use arbitration='epoch'")
-        require_off("OnlineChip telemetry", telemetry)
         chip.require_card()
         if snap_stride < 1:
             raise ValueError("snap_stride must be >= 1")

@@ -1,11 +1,6 @@
 """Telemetry opt-in configuration.
 
-Counterpart of the JAX package's ``obs/config.py``.  The rest of the JAX
-package's ``obs/`` (attribution, event replay, timelines, the Perfetto and
-text exporters) is not ported yet (ROADMAP queue 1, item 16): until it is,
-every entry point given ``TelemetryConfig(enabled=True)`` raises
-:class:`NotImplementedError` through :func:`require_off` instead of running
-without telemetry.
+Counterpart of the JAX package's ``obs/config.py``.
 
 This module deliberately imports nothing from the simulator layers so
 that ``core``/``multicore``/``serving`` modules can take a
@@ -28,14 +23,14 @@ class TelemetryConfig:
     With ``enabled=True`` the chip/batch drivers retain enough of each
     finished run (compiled traces, the exact share-schedule parameters
     each segment was simulated under) to assemble a
-    ``ChipTelemetry`` after the fact (not ported yet: see the module
-    docs).
+    :class:`repro_torch.obs.timeline.ChipTelemetry` after the fact.
     """
 
     enabled: bool = False
     #: also replay per-instruction stage events (TL/TS grants, MM
     #: FF/FS/DR windows) for every segment -- needed for stage tracks in
-    #: the Perfetto export, costs one extra numpy replay per segment.
+    #: the Perfetto export, costs one batched replay of the run's segments
+    #: on the chip's backend (:func:`repro_torch.obs.record.replay_many`).
     stages: bool = False
     #: emit counter tracks (per-epoch bandwidth share, in-flight cores)
     #: in the exporters.
@@ -52,13 +47,3 @@ class TelemetryConfig:
 #: the shared "telemetry off" default (frozen, so safe to share).
 OFF = TelemetryConfig()
 
-
-def require_off(what: str, telemetry: TelemetryConfig | None = None) -> None:
-    """Raise for ``what`` when it needs the unported part of ``obs/``: a
-    run asked for telemetry (``telemetry.enabled``), or, with no
-    ``telemetry`` given, a query that always needs it."""
-    if telemetry is None or telemetry.enabled:
-        raise NotImplementedError(
-            f"{what} needs the telemetry layers of obs/ (attribution, record, "
-            f"timeline, perfetto, render), not ported yet (ROADMAP queue 1, "
-            f"item 16)")

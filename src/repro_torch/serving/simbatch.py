@@ -96,7 +96,7 @@ from ..core.tiling import GemmSpec
 from ..multicore.chip import ChipConfig
 from ..multicore.online import OnlineChip
 from ..multicore.scheduler import assign_incremental
-from ..obs.config import OFF, TelemetryConfig, require_off
+from ..obs.config import OFF, TelemetryConfig
 
 POLICIES = ("fixed", "bandwidth", "occupancy", "predicted", "phase_aware",
             "degraded")
@@ -284,8 +284,10 @@ class BatchReport:
     #: MACs of requests served within their deadline (all served MACs when
     #: no deadlines are set; abandoned requests never count)
     served_macs: int = 0
-    #: the run's ``ChipTelemetry`` once the rest of ``obs/`` is ported
-    #: (always ``None`` until then); excluded from equality
+    #: :class:`repro_torch.obs.timeline.ChipTelemetry` when the run was made
+    #: with ``telemetry=TelemetryConfig(enabled=True)``; excluded from
+    #: equality (reports with and without telemetry compare by the numbers
+    #: above)
     telemetry: object | None = dataclasses.field(default=None, compare=False)
     #: why a ``backend="cuda"``/``"torch"`` run fell back to the
     #: incremental client (one of
@@ -297,7 +299,7 @@ class BatchReport:
     @property
     def attribution(self):
         """Per-core stall attribution (None without telemetry)."""
-        return None
+        return self.telemetry.attribution if self.telemetry else None
 
     def latency_percentile(self, q: float) -> float:
         """Linear-interpolated percentile of the request latencies."""
@@ -641,6 +643,22 @@ class _Batcher:
                 served_macs += r.macs
         first = min((r.arrival_epoch for r in reqs), default=0) * E
         finite = [f for f in finishes if not math.isinf(f)]
+        tele = None
+        if self.telemetry.enabled:
+            from ..obs.timeline import build_online_telemetry
+            names = {}
+            for name, seg in self.segments.items():
+                names[seg.sid] = name                # type: ignore[attr-defined]
+                while seg.preempted_at is not None:  # type: ignore[attr-defined]
+                    seg = sim.resume_of(seg)
+                    names[seg.sid] = name
+            marks = [(r.arrival_epoch * E, f"arrive {r.name}")
+                     for r in reqs]
+            marks += [(self.admit_epochs[r.name] * E, f"admit {r.name}")
+                      for r in reqs if r.name in self.admit_epochs]
+            marks += [(e * E, label) for e, label in self.events]
+            tele = build_online_telemetry(sim, self.telemetry, names=names,
+                                          marks=marks)
         return BatchReport(
             policy=self.policy,
             design=self.chip.design_name,
@@ -659,6 +677,7 @@ class _Batcher:
             retries=self.n_retries,
             abandoned=len(self.abandoned_names),
             served_macs=served_macs,
+            telemetry=tele,
         )
 
 
@@ -683,9 +702,10 @@ def run_batcher(requests: Sequence[ServeRequest],
     policy's departure-forecast window.  ``prefix_cache=False`` runs the
     online arbiter in its rebuild-from-epoch-0 baseline mode (identical
     results, linearly more work -- the ``benchmarks/online_scaling.py``
-    comparison).  ``telemetry=TelemetryConfig(enabled=True)`` raises
-    :class:`NotImplementedError` until the rest of ``obs/`` is ported
-    (ROADMAP queue 1, item 16).  ``max_attempts``/``backoff_epochs`` bound
+    comparison).  ``telemetry=TelemetryConfig(enabled=True)`` attaches a
+    full :class:`repro_torch.obs.timeline.ChipTelemetry` to the report
+    (and takes the incremental client: the whole-trace program keeps no
+    segment history).  ``max_attempts``/``backoff_epochs`` bound
     the deadline retry loop and ``max_prefills`` is the ``phase_aware``
     concurrent-prefill cap (all three inert without deadlines or that
     policy; see ``docs/resilience.md``).  Extra keyword arguments
@@ -702,10 +722,9 @@ def run_batcher(requests: Sequence[ServeRequest],
     names = [r.name for r in requests]
     if len(set(names)) != len(names):
         raise ValueError("request names must be unique")
-    require_off("run_batcher", telemetry)
     chip.require_card()
     jit_gate = None
-    if (prefix_cache and chip.backend in ("cuda", "torch")
+    if (prefix_cache and not telemetry.enabled and chip.backend in ("cuda", "torch")
             and requests and all(r.deadline is None for r in requests)):
         # whole-trace lane: one kernel launch (cuda) or its plain version
         # (torch) replays the full arbitration -- admission decisions

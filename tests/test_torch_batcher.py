@@ -140,10 +140,12 @@ def test_batcher_validation_and_refusals():
     chip = PORT.ChipConfig(backend="numpy", n_cores=2)
     with pytest.raises(ValueError, match="unknown policy"):
         PORT.run_batcher(requests, chip, policy="greedy")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PORT.run_batcher(requests, chip, telemetry=TelemetryConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PORT.OnlineChip(chip, telemetry=TelemetryConfig(enabled=True))
+    tcfg = TelemetryConfig(enabled=True)
+    rep = PORT.run_batcher(requests, chip, telemetry=tcfg)
+    assert rep.telemetry is not None and rep.telemetry.config is tcfg
+    assert rep.attribution is rep.telemetry.attribution
+    assert len(rep.telemetry.segments) == len(requests)
+    assert PORT.OnlineChip(chip, telemetry=tcfg).telemetry is tcfg
     assert PORT.ChipConfig().backend == "cuda"
     if not torch.cuda.is_available():
         for port_chip in (PORT.ChipConfig(n_cores=2),

@@ -49,7 +49,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.kernels.fastsim_scan, repro_torch.kernels.jitarb, "
             "repro_torch.obs, repro_torch.workload, repro_torch.multicore.jitarb, "
             "repro_torch.multicore.online, repro_torch.multicore.scheduler, "
-            "repro_torch.multicore.faults, repro_torch.serving.simbatch\n"
+            "repro_torch.multicore.faults, repro_torch.serving.simbatch, "
+            "repro_torch.obs.attribution, repro_torch.obs.record, repro_torch.obs.timeline, "
+            "repro_torch.obs.perfetto, repro_torch.obs.render, repro_torch.configs.rasa_paper\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -35,9 +35,11 @@ def test_telemetry_config_copy():
     for cfg in (t_obs, r_obs):
         with pytest.raises(ValueError):
             cfg.TelemetryConfig(max_stage_events=-1)
-    t_obs.require_off("x", t_obs.OFF)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t_obs.require_off("run_batcher", t_obs.TelemetryConfig(enabled=True))
+    # an enabled knob attaches the telemetry it asked for
+    tcfg = t_obs.TelemetryConfig(enabled=True, stages=True)
+    rep = PORT.simulate_chip(PORT.GemmSpec("t", 32, 64, 64),
+                             PORT.ChipConfig(backend="numpy", n_cores=2), telemetry=tcfg)
+    assert rep.telemetry.config is tcfg and rep.telemetry.kind == "closed"
 
 
 @pytest.mark.parametrize("strategy", r_part.PARTITIONERS)

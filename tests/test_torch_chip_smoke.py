@@ -459,3 +459,62 @@ def test_scan_bound_takes_the_longest_chain():
     assert part["bound_ms"] == whole["bound_ms"]
     row = chip_smoke.timed_row(2.0, "events", part)
     assert row["ns_per_step"] == pytest.approx(2.0 * 1e6 / 10)
+
+
+def _telemetry_runs():
+    """A small closed telemetry run with stage events on two CPU backends,
+    and its replay_many calls captured."""
+    from repro_torch.core import GemmSpec
+    from repro_torch.multicore import chip as chip_mod
+    from repro_torch.obs import TelemetryConfig, timeline
+    specs = [GemmSpec(f"g{i}", m, 128, 128) for i, m in enumerate((48, 16, 64))]
+    tcfg = TelemetryConfig(enabled=True, stages=True)
+    out = {}
+    calls = {be: chip_smoke.capture(timeline, "replay_many", lambda be=be: out.update({
+        be: chip_mod.simulate_chip(specs, chip_mod.ChipConfig(backend=be, device="cpu",
+                                                               **chip_smoke.TELE_CHIP),
+                                   scheduler="lpt", telemetry=tcfg)}))
+             for be in ("numpy", "torch")}
+    return out, calls
+
+
+def test_telemetry_checks_compare_every_segment_and_event():
+    """require_same_telemetry passes two equal runs and counts their stage
+    events; a changed event, a changed bucket or a changed segment field
+    is named."""
+    import dataclasses
+    out, _ = _telemetry_runs()
+    got, want = out["torch"].telemetry, out["numpy"].telemetry
+    n = chip_smoke.require_same_telemetry("t", got, want)
+    assert n == sum(len(s.events) for s in want.segments if s.events is not None) > 0
+    seg = want.segments[0]
+    assert seg.events is not None
+    bad = dataclasses.replace(seg.events, mm_ff_end=seg.events.mm_ff_end + 1.0)
+    moved = dataclasses.replace(want, segments=(dataclasses.replace(seg, events=bad),)
+                                + want.segments[1:])
+    with pytest.raises(RuntimeError, match="mm_ff_end"):
+        chip_smoke.require_same_telemetry("t", got, moved)
+    with pytest.raises(RuntimeError, match="busy_cycles"):
+        chip_smoke.require_same_telemetry("t", got, dataclasses.replace(
+            want, segments=(dataclasses.replace(seg, busy_cycles=1.0),) + want.segments[1:]))
+    with pytest.raises(RuntimeError, match="buckets"):
+        chip_smoke.require_same_telemetry("t", got, dataclasses.replace(
+            want, attribution=dataclasses.replace(want.attribution, window=1.0)))
+    with pytest.raises(RuntimeError, match="length|replays"):
+        chip_smoke.require_same_events("t", [seg.events], [])
+
+
+def test_replay_calls_gather_the_replays_inputs_and_events():
+    """The captured replay_many calls give one lane per staged segment: its
+    trace, engine, params and events, which the Python copy reproduces."""
+    out, calls = _telemetry_runs()
+    for be, rep in out.items():
+        traces, cfgs, params, events = chip_smoke.replay_calls(calls[be])
+        assert len(calls[be]) == 1
+        assert len(traces) == len(cfgs) == len(params) == len(events) == \
+            sum(1 for s in rep.telemetry.segments if s.events is not None)
+        chip_smoke.require_same_events(be, events, [s.events for s in rep.telemetry.segments
+                                                     if s.events is not None])
+        from repro_torch.obs import record
+        chip_smoke.require_same_events(be, record.replay_many(traces, cfgs, params,
+                                                              backend="numpy"), events)

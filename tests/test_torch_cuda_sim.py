@@ -322,3 +322,140 @@ def test_scan_never_granted_in_a_middle_segment():
         fastsim._run_numpy_params(middle, cfg, p)
     with pytest.raises(RuntimeError, match="can never be granted"):
         fastsim.sweep_traces([first, middle, last], [cfg], p, backend="cuda")
+
+
+# ------------------------------------------------- the event replay kernel
+EVENT_COLUMNS = ("tl_index", "tl_start", "tl_stall", "tl_bytes", "ts_index", "ts_start",
+                 "ts_stall", "mm_index", "mm_skip", "mm_wl_start", "mm_ff_start",
+                 "mm_ff_end", "mm_fs_end", "mm_dr_end")
+
+
+def with_nops(trace, every: int, tail: int):
+    """``trace`` with a NOP after every ``every`` instructions and ``tail``
+    NOPs at its end."""
+    pos = np.arange(every, len(trace), every)
+
+    def ins(a, fill=0):
+        return np.insert(a, pos, np.full(len(pos), fill, dtype=a.dtype))
+
+    out = dataclasses.replace(trace, opcode=ins(trace.opcode, 3), r_dst=ins(trace.r_dst),
+                              r_a=ins(trace.r_a), r_b=ins(trace.r_b), nbytes=ins(trace.nbytes),
+                              tm=ins(trace.tm), macs=ins(trace.macs),
+                              reusable=ins(trace.reusable))
+    return out.padded(len(out) + tail)
+
+
+def events_all(trs, cfgs, params):
+    """The event replay three ways on the same lanes, all equal column by
+    column: the kernel (one launch a load-model kind), its plain version on
+    the card, and the Python copy.  Returns the kernel's."""
+    from repro_torch.obs import record
+    kinds = len({p.is_port_model for p in params})
+    before = fsk.launches["events"]
+    got = record.replay_many(trs, cfgs, params, backend="cuda")
+    assert fsk.launches["events"] == before + kinds
+    plain = record.replay_many(trs, cfgs, params, backend="torch", device="cuda")
+    copy = record.replay_many(trs, cfgs, params, backend="numpy")
+    for g, p, c in zip(got, plain, copy):
+        for other in (p, c):
+            for col in EVENT_COLUMNS:
+                a, b = getattr(g, col), getattr(other, col)
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b, err_msg=col)
+            assert (g.cycles, g.bw_stall, g.wl_skips) == \
+                (other.cycles, other.bw_stall, other.wl_skips)
+    return got
+
+
+@pytest.mark.parametrize("model", list(PARAMS) + ["port_free"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_events_random_streams(seed, model):
+    """Random streams under every design: the event kernel equals its plain
+    version and the Python copy bit for bit, and its makespans are the
+    numpy lane's."""
+    need_cuda()
+    trs = traces([40 + seed, 50 + seed], n=300)
+    p = P(2) if model == "port_free" else PARAMS[model]
+    lanes = [(t, c) for t in trs for c in CFGS]
+    got = events_all([t for t, _ in lanes], [c for _, c in lanes], [p] * len(lanes))
+    assert [g.cycles for g in got] == [fastsim._run_numpy_params(t, c, p)[0].cycles
+                                       for t, c in lanes]
+
+
+def test_events_mixed_lengths_and_kinds_in_one_call():
+    """Lanes of unequal lengths (empty, the 8 loads alone, under a chunk, ~9
+    chunks) and both load-model kinds, the same trace twice: one launch a
+    kind, every lane equal three ways."""
+    need_cuda()
+    trs = ([compile_stream([])] + traces([60], n=0)[:1] + traces([61], n=90)
+           + traces([62], n=2300) + traces([63], n=250))
+    trs.append(trs[3])
+    cfg = DESIGNS["RASA-DMDB-WLS"]
+    params = [PARAMS["epoch"], P(2, 1), PARAMS["static"], PARAMS["epoch"], P(2),
+              PARAMS["static"]]
+    events_all(trs, [cfg] * len(trs), params)
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+def test_events_ring_edges_and_nops(bucket):
+    """Lanes at odd positions of the columns and lengths off the ring's
+    16-byte edges and chunks (257, 511, 1029 positions), NOPs inside and
+    after a stream, columns one position off their 16-byte edge: the kernel
+    equals its plain version row for row."""
+    need_cuda()
+    base = traces([70, 71], n=700) + traces([72], n=1000)
+    trs = [with_nops(base[0], 5, 2), base[1], with_nops(base[2], 3, 11)]
+    p = PARAMS["epoch"] if bucket else PARAMS["port_stores"]
+    cfgs = CFGS[:3]
+    args, kind = fastsim.scan_inputs(trs, [(k, c, p) for k, c in enumerate(cfgs)], "cuda")
+    assert kind == bucket
+    lanes = args[3]
+    lanes[0, 0], lanes[0, 1] = 3, 260        # 257 positions from an odd start
+    lanes[1, 1] = lanes[1, 0] + 511
+    lanes[2, 0] = lanes[2, 0] + 1
+    lanes[2, 1] = lanes[2, 0] + 1029
+    rows_k, out_k = fsk.fastsim_events_cuda(*args, bucket=bucket)
+    rows_p, out_p = fsk.fastsim_events_plain(*args, bucket=bucket)
+    assert torch.equal(rows_k.cpu(), rows_p.cpu()) and torch.equal(out_k.cpu(), out_p.cpu())
+    assert bool((rows_k[260:int(lanes[1, 0])] == 0).all())    # outside every lane: untouched
+    shifted = (args[0][1:], args[1][1:], args[2],
+               lanes - torch.tensor([1, 1, 0, 0], device="cuda"), args[4])
+    assert shifted[0].data_ptr() % 16
+    rows_s, out_s = fsk.fastsim_events_cuda(*shifted, bucket=bucket)
+    assert torch.equal(rows_s, rows_k[1:]) and torch.equal(out_s, out_k)
+    # whole NOP-padded traces: three ways
+    events_all(trs, cfgs, [p] * 3)
+
+
+def test_events_pow2_flags_and_shares_in_device_memory():
+    """An epoch of 1000 cycles and an issue rate of 3 (neither a power of
+    two), beside powers of two; a lane with more shares than a CTA stages:
+    three ways equal."""
+    need_cuda()
+    trs = traces([80, 81], n=400)
+    slow_p = P(2, 1, (8.0, 16.0, 48.0, 24.0), 1000.0, 64.0, 2048.0, True)
+    many = P(2, 1, tuple(8.0 + (k % 7) for k in range(10_000)), 16.0, 32.0, 1024.0, True)
+    slow_cfg = dataclasses.replace(CFGS[1], core_issue_width=3,
+                                   core_clock_hz=CFGS[1].engine_clock_hz)
+    cfgs = [slow_cfg, CFGS[2], slow_cfg, CFGS[3]]
+    events_all([trs[0], trs[0], trs[1], trs[1]], cfgs, [slow_p, PARAMS["epoch"], many, many])
+
+
+def test_events_never_granted_and_bad_inputs():
+    """A grant a schedule without a tail can never make raises the Python
+    copy's RuntimeError on the card; overlapping lanes and CPU tensors are
+    refused."""
+    need_cuda()
+    from repro_torch.obs import record
+    tr, = traces([90], n=300)
+    p = P(2, 1, (8.0,), 64.0, 1.0, 1024.0, True)
+    object.__setattr__(p, "tail_share", 0.0)
+    cfg = DESIGNS["RASA-WLBP"]
+    for backend in ("numpy", "cuda"):
+        with pytest.raises(RuntimeError, match="can never be granted"):
+            record.replay_many([tr], [cfg], [p], backend=backend)
+    args, _ = fastsim.scan_inputs([tr], [(0, cfg, PARAMS["epoch"])] * 2, "cuda")
+    with pytest.raises(ValueError, match="overlap"):
+        fsk.fastsim_events_cuda(*args, bucket=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fsk.fastsim_events_cuda(*(a.cpu() for a in args), bucket=True)

@@ -426,4 +426,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fsk.fastsim_mm_scan_cuda(code, torch.zeros((4, 6), dtype=torch.float64),
                                  torch.zeros((1, 6), dtype=torch.float64),
                                  torch.tensor([[0, 4]]))
-    assert fsk.launches == {"scan": 0, "mm_scan": 0}
+    with pytest.raises(ValueError, match="CUDA device"):
+        fsk.fastsim_events_cuda(code, val, lane_f, lane_i, torch.zeros(1, dtype=torch.float64),
+                                bucket=False)
+    assert fsk.launches == {"scan": 0, "mm_scan": 0, "events": 0}
