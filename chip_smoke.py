@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build, check, time, serve, train,
-simulate, batch.
+simulate, batch, launch.
 
     python3 chip_smoke.py
 
@@ -54,9 +54,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      under the pallas_rasa engine (wls, wlbp, base) and the xla engine,
      through the graphed session (CUDA graphs of prefill and decode, the
      main path) and the eager one (eager=True): each engine's decode
-     ms/step and prefill ms on both (host clock, synchronised; the median
-     of three), the graphed prefill logits and tokens equal to the eager
-     ones bit for bit, the wrapper's launches counted at capture, the
+     ms/step and prefill ms on both (host clock, synchronised; one timed
+     generation a session, the eager one counted), the graphed prefill
+     logits and tokens equal to the eager ones bit for bit, the wrapper's
+     launches counted at capture, the
      GEMM records of each replayed forward read from a torch.profiler
      trace, and the device idle share of consecutive decode steps and of
      prefill on both sessions;
@@ -83,7 +84,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      GEMM records (graphed trace), the expert products, the router and the
      dispatch/combine (each MoE piece timed alone on the step's own
      inputs); then the four untied heads timed at M 4.  One timed
-     generation per session (phases 5 and 7 take the median of three);
+     generation per session, as in phases 5 and 7;
   9. serving qwen2-vl-72b (8 of 80 layers) and grok-1-314b (2 of 64) at
      full width and reduced depth, under wls graphed and eager (bit for
      bit; one timed generation each), with the xla engine's prefill logits
@@ -91,15 +92,15 @@ Phases, each of which raises (exit code != 0) when it fails:
  10. training qwen3-1.7b and mamba2-130m at full width and depth (bf16,
      random weights from seed 0, the xla engine, AdamW with f32 moments,
      global batch 8 x 512 in 2 microbatches, remat full, warm-up 2 of 8
-     steps) through TrainLoop with a checkpoint every 4 steps into a
-     directory under build/: each step's loss, grad_norm, lr and host-clock
+     steps), steps 0-3 through TrainLoop, which writes one checkpoint at
+     its end into a directory under build/, steps 4-7 through the same
+     step function: each step's loss, grad_norm, lr and host-clock
      ms; every parameter's gradient finite and nonzero, the losses finite
      and the last below the first, no step retried; tokens/s and the
      model FLOPs' share of the bf16 peak from the median of steps 1-3
-     (before the first save), beside the median of steps 4-7 (the
-     checkpoint writer's thread running) and of the resumed steps 5-7 (no
-     writer); peak device memory; the step-4 checkpoint restored in place
-     into a fresh state (bit for bit the state the loop held there) and
+     (before the save), beside the median of steps 4-7 and of the resumed
+     steps 5-7; peak device memory; the step-4 checkpoint restored in place
+     into a fresh state (bit for bit the state the loop ended with) and
      steps 4-7 rerun from it (losses within 1e-3 of the first run's;
      bit-equal or not, printed); a traced step (device busy time, idle
      share, library GEMMs, the top kernels), the loss forward and AdamW
@@ -140,7 +141,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      RASA-WLBP cores at 32 B/cycle, a "cuda" chip): its ChipTelemetry equal
      to a numpy chip's, segment by segment and bucket by bucket, each
      segment's events bit-equal three ways (the event kernel, its plain
-     version on the card on a worker, the Python copy), and its Perfetto
+     version on the host's CPU on a worker, the Python copy), and its Perfetto
      trace written under build/ and parsed back.
      ``python3 chip_smoke.py simulate`` runs the build and this phase
      alone, and its last line says so ("phases": ["build", "simulate"]);
@@ -149,7 +150,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      of 1024 cycles: the whole-trace arbitration kernel (csrc/jitarb.cu,
      through run_batcher on a "cuda" chip) under fixed@1, occupancy,
      bandwidth and predicted, with demand shares and on a mixed chip (BASE,
-     RASA-WLBP, RASA-DMDB-WLS, RASA-WLBP), 200 TRACE_KW requests each
+     RASA-WLBP, RASA-DMDB-WLS, RASA-WLBP), 50 TRACE_KW requests each
      against the port's numpy client and, on the inputs the main path
      gave the kernel, against its plain version (finish and admit epochs
      and the program's counters bit for bit; the plain versions on the
@@ -162,14 +163,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      client: reports equal where the policy is the same, host-clock
      lowering, planning and settle apart; 2,000 TRACE_KW requests, cold
      and warm, against the numpy client; benchmarks/serving_batch.py's
-     arrival-rate sweep (x1, x0.5, x0.25 of 64 requests) as one launch of
+     arrival-rate sweep (x1, x0.5, x0.25 of 16 requests) as one launch of
      three CTAs, against the numpy client and its plain version; the
      kernel's row: the device time of the 4-request
      full-width settle from its trace (and an untraced rerun's host clock),
      its bound, the latency bound of its dependent chain and ns a step on
      the longest lane, ptxas's registers and spill bytes, the launches by
      path, and the program's rounds and blocks.  Then telemetry with stage
-     events on "cuda" (the incremental client): the 200 requests under
+     events on "cuda" (the incremental client): the 50 requests under
      occupancy against the numpy client's telemetry, and the event kernel
      against its plain version (on the card) on that run's replay; full
      width x 4 under occupancy, its report equal to the telemetry-off one;
@@ -178,7 +179,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      spills, and the host seconds of the Python copy on the same segments,
      events compared.
      ``python3 chip_smoke.py batcher`` runs the build and this phase alone
-     ("phases": ["build", "batcher"]).
+     ("phases": ["build", "batcher"]);
+ 13. the launchers under a DeviceMesh: a process group of one NCCL rank
+     and make_host_mesh()'s (1, 1) mesh; launch.serve's main on
+     qwen3-1.7b FULL (wls, bf16, batch 4, prompt 128, 32 greedy steps,
+     graphed) against the same weights served outside any mesh: tokens
+     bit for bit, each side's decode ms/step and prefill ms, and the RASA
+     GEMM records of a replayed decode step and prefill read from a trace
+     of each (equal: the kernel ran on the shards, nothing fell back);
+     launch.train's main on qwen3-1.7b FULL (FSDP x TP rules, bf16, xla,
+     8 x 512 in 2 microbatches, 3 steps, one checkpoint under build/)
+     against TrainLoop's step outside any mesh on the same weights and
+     batches (no checkpoint):
+     losses within 1e-3 (bit-equal printed), each side's step ms;
+     mamba2-130m FULL's train state saved without a mesh and restored in
+     place onto the mesh, every leaf bit for bit.
+     ``python3 chip_smoke.py launch`` runs the build and this phase alone,
+     then checks and times the wls kernel at qwen3-1.7b's shapes as
+     phases 3-4 do ("phases": ["build", "launch"]).
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -1274,7 +1292,7 @@ def graph_contents(torch, model, batch: int, max_seq: int) -> dict:
             "gemm_kernels": gemm, "other_kernels": other, "edges": edges}
 
 
-def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 3) -> dict:
+def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 1) -> dict:
     """Serve ``prompts`` under each engine of ``names`` through two
     ServeSessions: eager (eager=True) and graphed (the default on the
     card), one each for all the engines (the graphs are keyed by the model's
@@ -1282,11 +1300,11 @@ def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 3) -> di
     forward); the main path, the graphed session's first generate with the
     counts from 0 just before and read just after (it captures prefill and
     decode, one warm-up forward and one captured forward each, and replays
-    them); the eager session's generate, counted the same way; then
-    timed_generation ``repeats`` times on each session (prefill logits and
-    tokens must equal the eager ones bit for bit), serve_trace on each
-    (the graphed replays' GEMM records per forward must equal the counted
-    launches per forward), and graph_contents of the decode step."""
+    them); timed_generation ``repeats`` times on each session, the eager
+    session's first counted the same way (prefill logits and tokens must
+    equal the first eager run's and generate's bit for bit), serve_trace
+    on each (the graphed replays' GEMM records per forward must equal the
+    counted launches per forward), and graph_contents of the decode step."""
     from repro_torch.models.transformer import prompt_shape
     from repro_torch.serving import ServeSession
     m = cfg.model
@@ -1318,9 +1336,9 @@ def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 3) -> di
         counts = dict(rk.launches)
         peak = torch.cuda.max_memory_allocated()
         rk.reset_launches()
-        eager_tokens = eager.generate(prompts, STEPS)
-        torch.cuda.synchronize()
+        first_eager = timed_generation(torch, eager, prompts)
         eager_counts = dict(rk.launches)
+        eager_tokens = first_eager["tokens"]
         if (tokens.shape != prompt_shape(m, b, STEPS) or tokens.min() < 0
                 or tokens.max() >= m.vocab):
             raise AssertionError(f"{m.name} {name}: bad tokens {tuple(tokens.shape)}")
@@ -1330,8 +1348,9 @@ def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 3) -> di
             if got != expect:
                 raise AssertionError(f"{m.name} {name} {what}: launches {got}, expected {expect}")
 
-        runs = {mode: [timed_generation(torch, sessions[mode], prompts) for _ in range(repeats)]
-                for mode in ("eager", "graphed")}
+        runs = {"eager": [first_eager] + [timed_generation(torch, eager, prompts)
+                                          for _ in range(repeats - 1)],
+                "graphed": [timed_generation(torch, graphed, prompts) for _ in range(repeats)]}
         logits = runs["eager"][0]["logits"]
         for mode, rs in runs.items():
             for r in rs:
@@ -1422,7 +1441,7 @@ def build_served(torch, cfg, prompt: int):
     return model, prompts
 
 
-def serve(torch, rk, cfg, names, prompt: int, path=None, repeats: int = 3) -> dict:
+def serve(torch, rk, cfg, names, prompt: int, path=None, repeats: int = 1) -> dict:
     """Phases 5, 7 and 8: one model at full width through ServeSession
     under ``names`` (serve_engines, ``repeats`` timed generations a
     session); schedules bit-identical; kernel vs xla logits.
@@ -1572,7 +1591,7 @@ def serve_family(torch, rk, cfg) -> dict:
     path = (lambda model, prompts, results: {
         "floor": decode_floor_ms(model),
         **(moe_path(torch, model, prompts, results) if m.family == "moe" else {})})
-    out = serve(torch, rk, cfg, ("wls", "xla"), PROMPT, path=path, repeats=1)
+    out = serve(torch, rk, cfg, ("wls", "xla"), PROMPT, path=path)
     floor_bytes, floor_ms = out["path"]["floor"]
     print(f"serve {m.name}: decode floor {floor_bytes / 1e9:.3f} GB of weights per step "
           f"-> {floor_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; graphed wls "
@@ -1593,7 +1612,7 @@ def serve_reduced(torch, rk, arch: str, layers: int) -> dict:
     label = f"{arch} (reduced depth, {layers} of {full} layers)"
     print(f"serve {label}")
     model, prompts = build_served(torch, cfg, PROMPT)
-    results = serve_engines(torch, rk, cfg, model, prompts, ("wls",), repeats=1)
+    results = serve_engines(torch, rk, cfg, model, prompts, ("wls",))
     model.cfg = dataclasses.replace(cfg, engine=engine_of(cfg, "xla"))
     xla, _ = model.prefill(prompts, model.init_decode_state(BATCH, PROMPT))
     err = rel_err(results["wls"]["logits"], xla)
@@ -1822,11 +1841,12 @@ def product_precision(torch, card: str) -> dict:
 
 def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
     """Phase 10: ``arch`` at full width and depth, random weights (seed 0),
-    TRAIN through TrainLoop (checkpoints every TRAIN_RESUME_AT steps into a
-    directory under build/), with every step timed; the losses finite and
-    falling, every parameter's gradient present, no step retried.  Then the
-    step-TRAIN_RESUME_AT checkpoint restored into a fresh state (seed 1):
-    equal bit for bit to the state the loop held there, and steps
+    TRAIN's first TRAIN_RESUME_AT steps through TrainLoop (one checkpoint,
+    at its end, into a directory under build/), the rest through the same
+    step function on the same state, every step timed; the losses finite
+    and falling, every parameter's gradient present, no step retried.  Then
+    the step-TRAIN_RESUME_AT checkpoint restored into a fresh state (seed
+    1): equal bit for bit to the state the loop ended with, and steps
     TRAIN_RESUME_AT.. rerun from it, within TRAIN_RTOL of the first run.
     With ``rasa``, the forward loss under pallas_rasa against xla's."""
     import shutil
@@ -1852,22 +1872,20 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
         print(f"train {m.name}: {n_params} parameters, each with a finite, nonzero gradient")
         torch.cuda.reset_peak_memory_stats()
         first, snap = [], {}
-
-        def at_step(step):
-            if step == TRAIN_RESUME_AT:
-                torch.cuda.synchronize()
-                snap["peak"] = torch.cuda.max_memory_allocated()
-                snap["bits"] = state_bits(torch, state)
-
-        loop = TrainLoop(train_steps(torch, build_train_step(model), card, m.name, first),
-                         state, data.batch,
-                         LoopConfig(total_steps=TRAIN["total_steps"],
+        step = train_steps(torch, build_train_step(model), card, m.name, first)
+        # the loop saves once, at its last step (TrainLoop always saves there)
+        loop = TrainLoop(step, state, data.batch,
+                         LoopConfig(total_steps=TRAIN_RESUME_AT,
                                     checkpoint_every=TRAIN_RESUME_AT,
-                                    checkpoint_dir=str(ckpt_dir), log_every=TRAIN["total_steps"]),
-                         fault_hook=at_step)
+                                    checkpoint_dir=str(ckpt_dir), log_every=TRAIN["total_steps"]))
         t0 = time.perf_counter()
         loop.run()
         run_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        snap["peak"] = torch.cuda.max_memory_allocated()
+        snap["bits"] = state_bits(torch, state)
+        for s in range(TRAIN_RESUME_AT, TRAIN["total_steps"]):
+            step(state, data.batch(s))
         losses = [r["loss"] for r in first]
         if loop.restarts or len(first) != TRAIN["total_steps"]:
             raise AssertionError(f"train {m.name}: {loop.restarts} restarts, "
@@ -1915,14 +1933,14 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
     torch.cuda.empty_cache()
 
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
-    # steps 1..TRAIN_RESUME_AT-1 run before the first save; the later ones
-    # beside the checkpoint writer's thread; the resumed run saves nothing
+    # steps 1..TRAIN_RESUME_AT-1 run in the loop before its save; the later
+    # ones after it, and the resumed run's, beside no checkpoint writer
     ms = statistics.median(r["ms"] for r in first[1:TRAIN_RESUME_AT])
-    ms_writer = statistics.median(r["ms"] for r in first[TRAIN_RESUME_AT:])
+    ms_after = statistics.median(r["ms"] for r in first[TRAIN_RESUME_AT:])
     ms_resumed = statistics.median(r["ms"] for r in second[1:])
     flops = model_flops(m, tokens)
     row = {"arch": arch, "step_ms": [r["ms"] for r in first], "median_step_ms": ms,
-           "median_step_ms_beside_writer": ms_writer,
+           "median_step_ms_after_save": ms_after,
            "resumed_step_ms": [r["ms"] for r in second], "median_resumed_step_ms": ms_resumed,
            "tokens_per_s": tokens / ms * 1e3, "losses": losses,
            "grad_norms": [r["grad_norm"] for r in first], "lrs": [r["lr"] for r in first],
@@ -1933,14 +1951,14 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
            "peak_gb_steps_0_3": snap["peak"] / 1e9, "model_flops": flops,
            "bf16_peak_share": flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
            "parameters": m.param_count(), "rasa": rasa_row, "trace": trace, "card": card}
-    print(f"train {m.name}: median step {ms:.3f} ms (steps 1-{TRAIN_RESUME_AT - 1}, before "
-          f"the first save; step 0 {first[0]['ms']:.3f} ms; steps {TRAIN_RESUME_AT}-"
-          f"{TRAIN['total_steps'] - 1} beside the checkpoint writer {ms_writer:.3f} ms; "
-          f"resumed steps {TRAIN_RESUME_AT + 1}-{TRAIN['total_steps'] - 1}, no writer, "
-          f"{ms_resumed:.3f} ms) -> {row['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4g} a step -> "
+    print(f"train {m.name}: median step {ms:.3f} ms (steps 1-{TRAIN_RESUME_AT - 1}, in the "
+          f"loop before its save; step 0 {first[0]['ms']:.3f} ms; steps {TRAIN_RESUME_AT}-"
+          f"{TRAIN['total_steps'] - 1} after it {ms_after:.3f} ms; resumed steps "
+          f"{TRAIN_RESUME_AT + 1}-{TRAIN['total_steps'] - 1} {ms_resumed:.3f} ms) -> "
+          f"{row['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4g} a step -> "
           f"{row['bf16_peak_share']:.4f} of the bf16 peak (989 TFLOP/s); peak device memory "
-          f"{row['peak_gb_steps_0_3']:.3f} GB (steps 0-3); loop {run_s:.3f} s with "
-          f"checkpoints; restore of step {at} {restore_s:.3f} s (in place, "
+          f"{row['peak_gb_steps_0_3']:.3f} GB (steps 0-3); loop {run_s:.3f} s with its "
+          f"checkpoint; restore of step {at} {restore_s:.3f} s (in place, "
           f"{restore_extra_gb:.3f} GB of device memory beyond the state), state bit-equal "
           f"{equal}; "
           f"resumed losses max rel {rel:.3g}, bit-equal {bit_equal} | {card}")
@@ -2085,18 +2103,20 @@ def replay_calls(calls) -> tuple[list, list, list, list]:
     return out
 
 
-def replay_plain(traces, cfgs, params, backend: str):
+def replay_plain(traces, cfgs, params, backend: str, device: str = DEV):
     """The event replay of the given lanes (on a worker process or a
-    thread): "torch" its plain version on the card, "numpy" the Python
-    copy.  Returns the events and the seconds (host clock, synchronised on
-    the card)."""
+    thread): "torch" its plain version on ``device`` (on the host's CPU
+    with one thread), "numpy" the Python copy.  Returns the events and the
+    seconds (host clock, synchronised on the card)."""
     import torch
     from repro_torch.obs import record
-    card = backend == "torch"
+    card = backend == "torch" and device != "cpu"
     if card:
         torch.cuda.synchronize()
+    elif backend == "torch":
+        torch.set_num_threads(1)
     t0 = time.perf_counter()
-    out = record.replay_many(traces, cfgs, params, backend=backend, device=DEV)
+    out = record.replay_many(traces, cfgs, params, backend=backend, device=device)
     if card:
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
@@ -2423,8 +2443,9 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                                         for k in range(len(SIM_CORES)))]
     pool = ProcessPoolExecutor(SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
-    # one more worker for the telemetry replay's plain version on the card (~40 k
-    # lockstep steps), started as soon as the main path's telemetry run gives its inputs
+    # one more worker for the telemetry replay's plain version on the host's CPU (~40 k
+    # lockstep steps; ~5x faster there than launch-bound on the card), started as soon
+    # as the main path's telemetry run gives its inputs
     tele_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
                                     initializer=sim_worker_init, initargs=(str(ROOT / "src"),))
     with pool, tele_pool:
@@ -2432,8 +2453,8 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
         fsk.reset_launches()        # ---- the main path: counts from 0 ----
         # 0. telemetry with stage events on a 4-core cuda chip: tests/test_obs.py's
         # skewed workload under lpt, its stage replay one launch of the event kernel;
-        # first, so that its replay's plain version (~40 k lockstep steps on the card,
-        # on a worker of its own) starts at once
+        # first, so that its replay's plain version (~40 k lockstep steps on the host's
+        # CPU, on a worker of its own) starts at once
         tele_chip = chip_mod.ChipConfig(backend="cuda", **TELE_CHIP)
         tele_specs = [core.TABLE_I[k] for k in TELE_WORKLOAD]
         tcfg = TelemetryConfig(enabled=True, stages=True)
@@ -2442,7 +2463,7 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
             timeline, "replay_many", lambda: tele.update(cuda=chip_mod.simulate_chip(
                 tele_specs, tele_chip, scheduler="lpt", telemetry=tcfg))))
         tele_in = replay_calls(tele_calls)
-        tele_plain = tele_pool.submit(replay_plain, *tele_in[:3], "torch")
+        tele_plain = tele_pool.submit(replay_plain, *tele_in[:3], "torch", "cpu")
         # 5 (submitted first, checked below). Every kernel variant on DLRM-2
         # and on random streams: its plain version on the card, on a worker
         small = gemm_trace(core.TABLE_I[SIM_PLAIN_LAYER], ALG1_POLICY)
@@ -2595,7 +2616,7 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
                                       tele["cuda"].telemetry, tele["numpy"].telemetry)
     copy, host["telemetry_python_replay"] = replay_plain(*tele_in[:3], "numpy")
     require_same_events("simulate: the event kernel against the Python copy", tele_in[3], copy)
-    require_same_events("simulate: the event kernel against its plain version (on the card)",
+    require_same_events("simulate: the event kernel against its plain version (host CPU)",
                         tele_in[3], tele_plain_events)
     path = write_trace(tele["cuda"].telemetry, ROOT / "build" / "chip_smoke" / "closed.json")
     doc = json.loads(path.read_text())
@@ -2608,10 +2629,11 @@ def simulate_phase(torch, card: str, ptxas: dict) -> list[dict]:
         "attribution": tele["cuda"].telemetry.attribution.fractions(),
         "trace_file_bytes": path.stat().st_size, "trace_events": len(doc["traceEvents"]),
         "stage_events_dropped": doc["otherData"].get("stage_events_dropped", 0),
-        "plain_on_card_s": host["telemetry_plain"]}
+        "plain_on_cpu_s": host["telemetry_plain"]}
     print("simulate: telemetry (stages) on the cuda chip equals the numpy chip's, every "
-          "segment's events bit-equal three ways (kernel, plain version on the card, Python "
-          f"copy), {path.relative_to(ROOT)} parsed back: " + json.dumps(report["telemetry"]))
+          "segment's events bit-equal three ways (kernel, plain version on the host's CPU, "
+          f"Python copy), {path.relative_to(ROOT)} parsed back: "
+          + json.dumps(report["telemetry"]))
 
     # 6. times: each kernel on DLRM-2 (beside its plain version) and at the main path
     lanes_e = [(0, c, models["epoch"]) for c in cfgs]
@@ -2717,7 +2739,8 @@ TRACE_KW = dict(seed=0, mean_gap=2, d_model=128, prompt_lens=(16, 32, 64),
 BATCH_POLICIES = ("fixed", "occupancy", "bandwidth", "predicted")
 BATCH_VARIANTS = ("demand", "mixed")
 # requests of each case, against the numpy client and against the plain version
-BATCH_N = 200
+# (whose one-thread run on the host's CPU grows with them: ~50 s a case at 50)
+BATCH_N = 50
 # the full-width trace: qwen3-1.7b, 1 of 28 layers, ~0.65 M instructions a request
 FULL_ARCH, FULL_LAYERS = "qwen3-1.7b", 1
 FULL_KW = dict(seed=0, mean_gap=2, prompt_lens=(32, 64), decode_steps=(1, 2))
@@ -2727,7 +2750,9 @@ SCALE_N = 2000
 RATE_FACTORS = (1.0, 0.5, 0.25)
 SWEEP_KW = dict(seed=3, mean_gap=4, d_model=128, prompt_lens=(16, 32, 64),
                 decode_steps=(1, 2), decode_batch=8)
-SWEEP_N = 64
+# its requests: 64 in the benchmark, cut so that the plain version's one-thread run
+# of the three traces (~0.9 s a request on the host's CPU) ends with the cases'
+SWEEP_N = 16
 #: what ``python3 chip_smoke.py batcher`` runs (its last line names them)
 BATCHER_PHASES = ("build", "batcher")
 PREDICTION_BATCH = (
@@ -2854,7 +2879,7 @@ def start_batch_plain() -> tuple:
     path's inputs of the BATCH_N-request cases (as run_batcher plans them on
     a cuda chip) and of the rate sweep's launch, one spawned process a run
     at the lowest priority, on the host's CPU (~0.7 ms an instruction step;
-    150-200 s a run on an H100 machine's host).  Returns the pool (leaving
+    20-60 s a run at 50 requests).  Returns the pool (leaving
     its ``with`` block terminates it), the inputs by case and the pending
     results."""
     import multiprocessing
@@ -3200,6 +3225,266 @@ def telemetry_row(torch, card: str, ptxas: dict, tele: dict, calls: dict, n_even
                 f"({len(full[0])} segments, one launch a load-model kind)"}
 
 
+# ------------------------------------------------------------------ launch
+
+LAUNCH_ARCH = "qwen3-1.7b"            # served and trained through the launchers
+LAUNCH_RESTORE_ARCH = "mamba2-130m"   # its checkpoint restored onto the mesh
+LAUNCH_TRAIN_STEPS = 3
+LAUNCH_PHASES = ("build", "launch")
+PREDICTION_LAUNCH = (
+    "qwen3-1.7b wls through launch.serve on a (1, 1) DeviceMesh: graphed decode "
+    "ms/step within 5% of the unmeshed session's (8-10), prefill within 10% (20-35 ms): a "
+    "(1, 1) mesh moves no data and the captured graphs hold the same GEMM launches (197 a "
+    "decode step), at most a few added copies; tokens bit-equal. launch.train (FSDP x TP "
+    "on (1, 1), 8 x 512 in 2 microbatches): DTensor's dispatch on the host adds 50-200 us "
+    "to each of ~20,000 ops a step, so a meshed step takes 2-5 s against 1.1-1.4 s "
+    "unmeshed; losses bit-equal. mamba2-130m's 1.3 GB state restored onto the mesh in "
+    "1-5 s, bit for bit.")
+
+
+def launch_serve_argv() -> list[str]:
+    """Phase 13's serving command line: qwen3-1.7b FULL, batch 4, prompt
+    128, 32 greedy steps (the engine comes with the config)."""
+    return ["--arch", LAUNCH_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+            "--steps", str(STEPS), "--device", DEV]
+
+
+def launch_train_argv(ckpt_dir: str) -> list[str]:
+    """Phase 13's training command line: phase 10's batch (8 x 512; the
+    config brings the 2 microbatches), LAUNCH_TRAIN_STEPS steps, one
+    checkpoint at the end."""
+    return ["--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_TRAIN_STEPS),
+            "--global-batch", str(TRAIN["global_batch"]), "--seq-len", str(TRAIN["seq_len"]),
+            "--checkpoint-dir", ckpt_dir, "--checkpoint-every", str(LAUNCH_TRAIN_STEPS),
+            "--device", DEV]
+
+
+def compare_losses(meshed: list, plain: list, rtol: float = TRAIN_RTOL) -> dict:
+    """The meshed run's losses against the unmeshed one's: the largest
+    relative difference (raises above ``rtol``) and whether they are equal."""
+    if len(meshed) != len(plain) or not meshed:
+        raise AssertionError(f"launch train: {len(meshed)} meshed steps, {len(plain)} plain")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(meshed, plain))
+    if not rel <= rtol:
+        raise AssertionError(f"launch train: meshed losses {meshed} vs {plain}: rel {rel} "
+                             f"> {rtol}")
+    return {"max_rel": rel, "bit_equal": meshed == plain}
+
+
+def launch_serve_part(torch, rk, card: str) -> dict:
+    """Phase 13, serving: launch.serve's main under the host mesh against
+    the same weights served outside any mesh, tokens bit for bit; each
+    side's prefill ms and decode ms/step, and the RASA GEMM records of a
+    replayed decode step and prefill from a trace of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh_context
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeSession
+    base = get_config(LAUNCH_ARCH)
+    cfg = dataclasses.replace(base, engine=engine_of(base, "wls"))
+    per_forward = gemm_launches_per_forward(cfg.model, cfg.engine.block_k)["wls"]
+    rk.reset_launches()
+    run = launch_serve.main(launch_serve_argv(), cfg=cfg)
+    launches = dict(rk.launches)
+    if launches["wls"] == 0 or any(launches[s] for s in ("base", "wlbp")):
+        raise AssertionError(f"launch serve: RASA launches {launches}")
+    prompts = torch.as_tensor(launch_serve.prompts_for(cfg, BATCH, PROMPT), device=DEV)
+    with mesh_context(run.mesh, cfg.parallel):
+        meshed_trace = serve_trace(torch, run.session, prompts, per_forward)
+        dtensors = sum(type(p).__name__ == "DTensor" for p in run.session.model.parameters())
+    model = build_model(cfg, device=DEV, seed=0)
+    plain = ServeSession(model, max_seq=PROMPT + STEPS + 8, device=DEV)
+    tokens, prefill_ms, decode_ms = launch_serve.timed_generate(plain, prompts, STEPS)
+    plain_trace = serve_trace(torch, plain, prompts, per_forward)
+    equal = torch.equal(run.tokens, tokens)
+    if not equal:
+        raise AssertionError("launch serve: the meshed tokens differ from the unmeshed ones")
+    for part in ("prefill", "decode"):
+        got, want = (t[part]["gemm_records_per_call"] for t in (meshed_trace, plain_trace))
+        if got != want or got != per_forward:
+            raise AssertionError(f"launch serve {part}: {got} RASA GEMM records a call "
+                                 f"meshed, {want} unmeshed, {per_forward} expected")
+    n_params = sum(1 for _ in model.parameters())
+    if dtensors != n_params:
+        raise AssertionError(f"launch serve: {dtensors} of {n_params} parameters DTensors")
+    for side, trace in (("meshed", meshed_trace), ("unmeshed", plain_trace)):
+        print(f"launch serve trace {side}: " + json.dumps(trace))
+    row = {"mesh": list(run.mesh.shape), "tokens_bit_equal": equal,
+           "launches": launches["wls"], "graphed": run.session.graphed,
+           "meshed": {"prefill_ms": run.prefill_ms, "decode_ms": run.decode_ms_per_step,
+                      "trace": meshed_trace},
+           "unmeshed": {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                        "trace": plain_trace},
+           "gemm_records_per_decode_step": meshed_trace["decode"]["gemm_records_per_call"],
+           "card": card}
+    print(f"launch serve {LAUNCH_ARCH} wls on mesh {tuple(run.mesh.shape)}: graphed "
+          f"{run.session.graphed}; prefill {run.prefill_ms:.3f} ms meshed, {prefill_ms:.3f} "
+          f"unmeshed; decode {run.decode_ms_per_step:.3f} ms/step meshed, {decode_ms:.3f} "
+          f"unmeshed; RASA GEMM records a decode step {row['gemm_records_per_decode_step']} "
+          f"both; tokens bit-equal {equal}; {dtensors} DTensor parameters | {card}")
+    del run, model, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def launch_train_part(torch, card: str) -> dict:
+    """Phase 13, training: launch.train's main (FSDP x TP under the host
+    mesh) against TrainLoop's step on the same config, weights and batches
+    outside any mesh (no checkpoint: the launcher's save is the meshed
+    side's); losses within TRAIN_RTOL, each side's step ms."""
+    import shutil
+    import tempfile
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    base = dataclasses.replace(get_config(LAUNCH_ARCH),
+                               train=TrainConfig(microbatches=TRAIN["microbatches"]))
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    for side in ("meshed", "unmeshed"):
+        ckpt = tempfile.mkdtemp(prefix=f"launch-{side}-", dir=ROOT / "build")
+        try:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            if side == "meshed":
+                loop = launch_train.main(launch_train_argv(ckpt), cfg=base)
+                params = list(loop.state.params.values())
+                if not all(type(p).__name__ == "DTensor" for p in params):
+                    raise AssertionError("launch train: a parameter is not a DTensor")
+                hist = loop.metrics_history
+                del loop, params
+            else:
+                cfg = launch_train.run_config(
+                    base, steps=LAUNCH_TRAIN_STEPS, global_batch=TRAIN["global_batch"],
+                    seq_len=TRAIN["seq_len"], lr=3e-4, checkpoint_every=LAUNCH_TRAIN_STEPS,
+                    checkpoint_dir=ckpt)
+                model = build_model(cfg, device=DEV, seed=cfg.train.seed)
+                data = SyntheticLMDataset(cfg.model, seq_len=TRAIN["seq_len"],
+                                          global_batch=TRAIN["global_batch"])
+                # TrainLoop's steps and timing without its checkpoint: the
+                # meshed side's save is the launcher's, this side writes none
+                step_fn, state, hist = build_train_step(model), init_train_state(model), []
+                for s in range(LAUNCH_TRAIN_STEPS):
+                    t1 = time.perf_counter()
+                    _, metrics = step_fn(state, data.batch(s))
+                    hist.append({"loss": float(metrics["loss"]),
+                                 "time_s": time.perf_counter() - t1})
+                del model, state, step_fn
+            torch.cuda.synchronize()
+            out[side] = {"losses": [m["loss"] for m in hist],
+                         "step_ms": [m["time_s"] * 1e3 for m in hist],
+                         "median_step_ms": statistics.median(m["time_s"] * 1e3
+                                                             for m in hist[1:]),
+                         "run_s": time.perf_counter() - t0}
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    cmp = compare_losses(out["meshed"]["losses"], out["unmeshed"]["losses"])
+    row = {**out, "losses": cmp, "card": card}
+    print(f"launch train {LAUNCH_ARCH} (8 x 512, 2 microbatches, {LAUNCH_TRAIN_STEPS} steps): "
+          f"median step {out['meshed']['median_step_ms']:.3f} ms meshed, "
+          f"{out['unmeshed']['median_step_ms']:.3f} unmeshed (steps 1-"
+          f"{LAUNCH_TRAIN_STEPS - 1}); losses {out['meshed']['losses']} vs "
+          f"{out['unmeshed']['losses']}: max rel {cmp['max_rel']:.3g}, bit-equal "
+          f"{cmp['bit_equal']} | {card}")
+    return row
+
+
+def launch_restore_part(torch, card: str) -> dict:
+    """Phase 13, restore onto a mesh: mamba2-130m FULL's train state saved
+    with no mesh under build/, restored in place into a state distributed
+    on the host mesh (a fresh model, seed 1), every leaf bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_into, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh_context
+    from repro_torch.distributed.sharding import full, map_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+    cfg = get_config(LAUNCH_RESTORE_ARCH)
+    ckpt = tempfile.mkdtemp(prefix="launch-restore-", dir=ROOT / "build")
+    try:
+        state = init_train_state(build_model(cfg, device=DEV, seed=0))
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, 0, state)
+        save_s = time.perf_counter() - t0
+        saved = state_bits(torch, state)
+        del state
+        with mesh_context(make_host_mesh(device=DEV), cfg.parallel):
+            fresh = init_train_state(build_model(cfg, device=DEV, seed=1))
+            n_dtensors = sum(type(p).__name__ == "DTensor" for p in fresh.params.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_into(ckpt, fresh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            got = state_bits(torch, map_tree(full, fresh))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    equal = len(got) == len(saved) and all(torch.equal(a, b) for a, b in zip(got, saved))
+    if not equal or n_dtensors != len(fresh.params):
+        raise AssertionError(f"launch restore: bit-equal {equal}, {n_dtensors} of "
+                             f"{len(fresh.params)} parameters DTensors")
+    gb, n_leaves = sum(t.numel() for t in saved) / 1e9, len(saved)
+    print(f"launch restore {LAUNCH_RESTORE_ARCH}: {n_leaves} leaves ({gb:.3f} GB) saved "
+          f"without a mesh in {save_s:.3f} s, restored onto the mesh in {restore_s:.3f} s, "
+          f"bit-equal {equal} | {card}")
+    del fresh, saved, got
+    torch.cuda.empty_cache()
+    return {"leaves": n_leaves, "gb": gb, "save_s": save_s,
+            "restore_s": restore_s, "bit_equal": equal, "card": card}
+
+
+def launch_phase(torch, rk, card: str) -> dict:
+    """Phase 13: the launchers on the card under a DeviceMesh of the world
+    of one NCCL rank (make_host_mesh: (1, 1))."""
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    print("prediction (written before the first run of phase 13): " + PREDICTION_LAUNCH)
+    init_distributed(DEV)
+    shape = tuple(make_host_mesh(device=DEV).shape)
+    if shape != (1, 1):
+        raise AssertionError(f"launch: the host mesh is {shape}, not (1, 1)")
+    t0 = time.perf_counter()
+    out = {"mesh": list(shape), "serve": launch_serve_part(torch, rk, card),
+           "train": launch_train_part(torch, card),
+           "restore": launch_restore_part(torch, card)}
+    out["phase_s"] = time.perf_counter() - t0
+    print("launch: " + json.dumps({k: v for k, v in out.items() if k != "serve"}))
+    return out
+
+
+def launch_kernel_row(torch, rk, launched: dict) -> dict:
+    """The RASA GEMM's row of a ``launch`` run: the wls kernel checked
+    against its plain version at qwen3-1.7b's shapes (phase 3) and timed
+    over one decode step of GEMMs (phase 4), its launches those of phase
+    13's served main path."""
+    from repro_torch.configs import get_config
+    qwen = get_config(LAUNCH_ARCH)
+    worst = check_gemm(torch, rk, (qwen,))
+    step, timers = time_gemm(torch, rk, qwen)
+    bound_by = max(("bytes", "operations"), key=lambda b: step[b]["decode"])
+    serve = launched["serve"]
+    return {"name": rk.KERNEL_NAMES["wls"], "route": "cuda", "source": SOURCES["gemm"],
+            "replaces": REPLACES["wls"], "launches": serve["launches"],
+            "launches_note": "launch.serve's main path under the (1, 1) mesh (warm-up and "
+                             "capture of prefill and decode; replays never enter the wrapper)",
+            "replayed_launches_per_decode_step": {
+                side: serve[side]["trace"]["decode"]["gemm_records_per_call"]
+                for side in ("meshed", "unmeshed")},
+            "max_abs_err": worst["wls"], "ms": step["wls"]["decode"],
+            "plain_ms": step["plain"]["decode"], "bound_ms": step[bound_by]["decode"],
+            "bound_by": bound_by, "library_ms": step["library"]["decode"],
+            "timer": {"ms": timers["wls"], "plain_ms": timers["plain"],
+                      "library_ms": timers["library"]},
+            "work": "one qwen3-1.7b decode step of GEMMs (M=4, bf16)"}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -3242,6 +3527,11 @@ def main() -> int:
         phase("batcher")
         kernels = batcher_phase(torch, card, ptxas)
         return finish(torch, t_start, kernels, card, kind, phases=BATCHER_PHASES)
+    if sys.argv[1:] == ["launch"]:            # the build and phase 13 alone
+        phase("launch")
+        launched = launch_phase(torch, rk, card)
+        return finish(torch, t_start, [launch_kernel_row(torch, rk, launched)], card, kind,
+                      phases=LAUNCH_PHASES)
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
@@ -3292,6 +3582,8 @@ def main() -> int:
     simulated = simulate_phase(torch, card, ptxas)
     phase("batcher")
     batched = batcher_phase(torch, card, ptxas)
+    phase("launch")
+    launched = launch_phase(torch, rk, card)
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])
@@ -3312,6 +3604,12 @@ def main() -> int:
             "train_launches": (trained["qwen3-1.7b"]["rasa"]["launches"] if s == "wls" else 0),
             "train_launches_note": "phase 10: one forward loss of qwen3-1.7b FULL under "
                                    "pallas_rasa, the counts set to 0 just before it",
+            "launch_launches": launched["serve"]["launches"] if s == "wls" else 0,
+            "launch_launches_note": "phase 13: launch.serve's main path under the (1, 1) "
+                                    "DeviceMesh, the counts set to 0 just before it",
+            "launch_replayed_launches_per_decode_step": {
+                side: (launched["serve"][side]["trace"]["decode"]["gemm_records_per_call"]
+                       if s == "wls" else 0) for side in ("meshed", "unmeshed")},
             "decode_graph": results[s]["decode_graph"],
             "replayed_gemm_busy_ms": {
                 part: results[s]["graphed"]["trace"][part]["gemm_busy_ms_per_call"]

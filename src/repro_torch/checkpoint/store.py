@@ -7,15 +7,22 @@
                  one background thread, so the train loop overlaps step N+1
                  with persisting step N;
   * integrity -- a crc32 per leaf in the manifest, checked on load;
-  * retention -- keep the newest K checkpoints.
+  * retention -- keep the newest K checkpoints;
+  * resharding -- a restore takes target shardings: a checkpoint written
+                 on one mesh (or none) restores onto another mesh (or none),
+                 the elastic restart after node loss.
 
 Format: one ``arrays.npz`` of raw bytes per checkpoint (one uint8 array per
 leaf; the logical dtype and shape live in ``manifest.json``), so bf16 goes
 through its bytes and needs no numpy dtype.  A state is a tree of dicts,
 NamedTuples, lists and tuples over tensor leaves; a leaf's name is its
-path.  A restore puts each leaf on the device of the template's leaf
-(``restore_into`` writes it into the leaf itself); restoring onto another mesh (resharding) comes with the distributed slice
-(ROADMAP queue 1, item 11).
+path.  A checkpoint holds full tensors: a DTensor leaf is gathered on
+save (every rank takes part; rank 0 writes, and the others wait for it), so
+what was written does not depend on the mesh.  A restore puts each leaf on
+the device of the template's leaf, laid out as the target sharding says
+(a ``distributed.NamedSharding``), or by default as the template's leaf
+is (a DTensor's own placements on the current mesh; ``restore_into``
+writes each rank's shard into the leaf itself).
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.sharding import (NamedSharding, distribute, full, is_dtensor, laid_out,
+                                    shard_like)
 
 
 def _items(tree: Any):
@@ -44,13 +55,15 @@ def _items(tree: Any):
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
 
 
-def flatten_with_names(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    """(path, leaf) of every tensor leaf, in the tree's order."""
-    if isinstance(tree, torch.Tensor):
+def flatten_with_names(tree: Any, prefix: str = "",
+                       leaf_type: type = torch.Tensor) -> list[tuple[str, Any]]:
+    """(path, leaf) of every leaf (an instance of ``leaf_type``), in the
+    tree's order."""
+    if isinstance(tree, leaf_type):
         return [(prefix, tree)]
     out = []
     for key, sub in _items(tree):
-        out += flatten_with_names(sub, f"{prefix}/{key}")
+        out += flatten_with_names(sub, f"{prefix}/{key}", leaf_type)
     return out
 
 
@@ -75,15 +88,36 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def to_host(state: Any) -> Any:
-    """A copy of ``state`` with every leaf on the host."""
+    """A copy of ``state`` with every leaf on the host, DTensors gathered
+    (a collective: every rank of their mesh calls it)."""
     names = flatten_with_names(state)
-    return unflatten_like(state, iter(t.detach().to("cpu", copy=True) for _, t in names))
+    return unflatten_like(state, iter(full(t.detach()).to("cpu", copy=True)
+                                      for _, t in names))
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    """Wait for every rank (the writer's files are on disk after it)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def save_checkpoint(directory: str | Path, step: int, state: Any) -> Path:
-    """Synchronous atomic save; returns the final checkpoint dir."""
+    """Synchronous atomic save; returns the final checkpoint dir.  With
+    DTensor leaves every rank calls it: the leaves are gathered, rank 0
+    writes, and every rank returns once the files are on disk."""
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
+    if any(is_dtensor(t) for _, t in flatten_with_names(state)):
+        host = to_host(state)
+        if _writer():
+            save_checkpoint(directory, step, host)
+        _barrier()
+        return final
     tmp = directory / f".tmp-{uuid.uuid4().hex[:8]}"
     tmp.mkdir(parents=True, exist_ok=True)
     try:
@@ -158,30 +192,58 @@ def _read(data, name: str, e: dict) -> torch.Tensor:
     return torch.from_numpy(raw).view(getattr(torch, e["dtype"])).reshape(e["shape"])
 
 
-def restore_checkpoint(directory: str | Path, template: Any,
-                       step: int | None = None) -> tuple[Any, int]:
+def _flat_shardings(shardings: Any, n: int) -> list:
+    if shardings is None:
+        return [None] * n
+    flat = [s for _, s in flatten_with_names(shardings, leaf_type=NamedSharding)]
+    if len(flat) != n:
+        raise ValueError(f"{len(flat)} shardings for {n} leaves")
+    return flat
+
+
+def restore_checkpoint(directory: str | Path, template: Any, step: int | None = None,
+                       shardings: Any = None) -> tuple[Any, int]:
     """A new tree of ``template``'s structure holding checkpoint ``step``
     (default: the newest), each leaf with the dtype of the template's leaf
-    and on its device; and the step.  Raises on a missing leaf, a shape
-    that differs, or a checksum that does not match (a corrupt file)."""
+    and on its device; and the step.  ``shardings`` (a tree of
+    NamedShardings of the template's structure) reshard onto the current
+    mesh, which may differ from the mesh that wrote the checkpoint; by
+    default a DTensor leaf of the template gives its own layout and a plain
+    one none.  Raises on a missing leaf, a shape that differs, or a
+    checksum that does not match (a corrupt file)."""
     d, step, leaves = _open(directory, template, step)
+    out = []
     with np.load(d / "arrays.npz") as data:
-        out = [_read(data, name, e).to(device=leaf.device, dtype=leaf.dtype)
-               for name, leaf, e in leaves]
+        for (name, leaf, e), sh in zip(leaves, _flat_shardings(shardings, len(leaves))):
+            if sh is None and is_dtensor(leaf):
+                sh = NamedSharding(leaf.device_mesh, tuple(leaf.placements))
+            t = _read(data, name, e).to(device=leaf.device, dtype=leaf.dtype)
+            # a plain leaf stays plain where its sharding replicates
+            keep = sh is None or (not is_dtensor(leaf) and sh.replicated)
+            out.append(t if keep else distribute(t, sh))
     return unflatten_like(template, iter(out)), step
 
 
 @torch.no_grad()
-def restore_into(directory: str | Path, state: Any, step: int | None = None) -> int:
+def restore_into(directory: str | Path, state: Any, step: int | None = None,
+                 shardings: Any = None) -> int:
     """Checkpoint ``step`` (default: the newest) written into ``state``'s own
     tensors, leaf by leaf from the host: the device never holds a second
-    copy of the state.  Returns the step.  A missing leaf or a shape that
-    differs raises before any leaf is written; a checksum that does not
-    match raises with the leaves before it already written."""
+    copy of the state, and a DTensor leaf takes its rank's shard, whatever
+    mesh wrote the checkpoint.  ``shardings`` (a tree of NamedShardings of
+    the state's structure), when given, must be the state's own layout.
+    Returns the step.  A missing leaf, a shape that differs or a leaf laid
+    out otherwise than ``shardings`` raises before any leaf is written; a
+    checksum that does not match raises with the leaves before it already
+    written."""
     d, step, leaves = _open(directory, state, step)
+    for (name, leaf, _), sh in zip(leaves, _flat_shardings(shardings, len(leaves))):
+        if sh is not None and not laid_out(leaf, sh):
+            raise ValueError(f"{name} is not laid out as its target sharding {sh}")
     with np.load(d / "arrays.npz") as data:
         for name, leaf, e in leaves:
-            leaf.copy_(_read(data, name, e))
+            dst, src = shard_like(_read(data, name, e).to(leaf.device), leaf)
+            dst.copy_(src)
     return step
 
 
@@ -197,10 +259,12 @@ class CheckpointManager:
         self._lock = threading.Lock()
 
     def save_async(self, step: int, state: Any) -> None:
-        """Device -> host copy now; file IO on the background thread."""
+        """Device -> host copy now (DTensors gathered: every rank calls
+        this); file IO on rank 0's background thread."""
         host_state = to_host(state)
         self.wait()
-        self._pending = self._pool.submit(self._save_and_gc, step, host_state)
+        if _writer():
+            self._pending = self._pool.submit(self._save_and_gc, step, host_state)
 
     def _save_and_gc(self, step: int, state: Any) -> None:
         save_checkpoint(self.directory, step, state)
@@ -212,10 +276,12 @@ class CheckpointManager:
                 shutil.rmtree(self.directory / f"step_{s:08d}", ignore_errors=True)
 
     def wait(self) -> None:
-        """Block until the pending save is on disk; raises its error."""
+        """Block until the pending save is on disk (on every rank); raises
+        its error."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+        _barrier()
 
-    def restore_latest(self, template: Any):
-        return restore_checkpoint(self.directory, template)
+    def restore_latest(self, template: Any, shardings: Any = None):
+        return restore_checkpoint(self.directory, template, shardings=shardings)

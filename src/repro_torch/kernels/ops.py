@@ -10,10 +10,12 @@ does not take.  There is no fallback from the card to the CPU.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .flash_attention import flash_attention, flash_attention_plain
-from .rasa_gemm import GemmBlocks, rasa_gemm, rasa_gemm_plain
+from .rasa_gemm import GemmBlocks, default_blocks, rasa_gemm, rasa_gemm_plain
 
 
 FORWARD_ONLY = ("the RASA engine (pallas_rasa) is forward-only, as the reference's "
@@ -22,11 +24,12 @@ FORWARD_ONLY = ("the RASA engine (pallas_rasa) is forward-only, as the reference
 
 
 class _ForwardOnly(torch.autograd.Function):
-    """The RASA GEMM inside autograd: its output carries a derivative that
-    raises, so a backward through it fails on either device instead of
-    giving the plain version's gradient on the CPU and none on the card.
-    With no input that needs a gradient, or under ``torch.no_grad()``,
-    ``apply`` records nothing and this is the GEMM alone."""
+    """The RASA GEMM on plain tensors inside autograd: its output carries a
+    derivative that raises, so a backward through it fails on either device
+    instead of giving the plain version's gradient on the CPU and none on
+    the card.  With no input that needs a gradient, or under
+    ``torch.no_grad()``, ``apply`` records nothing and this is the GEMM
+    alone."""
 
     @staticmethod
     def forward(ctx, fn, a, b, c, kw):
@@ -37,11 +40,90 @@ class _ForwardOnly(torch.autograd.Function):
         raise RuntimeError(FORWARD_ONLY)
 
 
+@torch.library.custom_op("repro_torch::rasa_mm", mutates_args=(), schema=(
+    "(Tensor a, Tensor b, Tensor? c, str schedule, int bk, ScalarType out_dtype) -> Tensor"))
+def _rasa_mm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor], schedule: str,
+             bk: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The RASA GEMM as one operator, for DTensor operands: each rank runs
+    the CUDA kernel (its plain version for CPU tensors) on its local shards
+    (``_rasa_mm_sharding``).  Plain tensors skip the operator's dispatch
+    (``rasa_matmul``)."""
+    fn = rasa_gemm_plain if a.device.type == "cpu" else rasa_gemm
+    return fn(a, b, c, schedule=schedule, blocks=GemmBlocks(bk=bk), out_dtype=out_dtype)
+
+
+@_rasa_mm.register_fake
+def _(a, b, c, schedule, bk, out_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+
+
+def _forward_only(ctx, g):
+    raise RuntimeError(FORWARD_ONLY)
+
+
+# forward-only under DTensor too (``_ForwardOnly``)
+_rasa_mm.register_autograd(_forward_only)
+
+
+def _mm_strategies(c_given: bool, batch: bool = False) -> list:
+    """Per mesh dim, the (output, inputs) placements under which a product
+    of local shards is the product's shard: all replicated; rows of A
+    (and of C); columns of B (and of C); the contraction split, whose local
+    products are partial sums (a summand C only where it is not split).
+    ``batch``: a leading batch dim shared by both operands (bmm), also
+    split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, o = Replicate(), int(batch)
+    c = (lambda p: p) if c_given else (lambda p: None)
+    out = [([r], [r, r, c(r)]),
+           ([Shard(o)], [Shard(o), r, c(Shard(o))]),
+           ([Shard(o + 1)], [r, Shard(o + 1), c(Shard(o + 1))])]
+    if batch:
+        out.append(([Shard(0)], [Shard(0), Shard(0), c(Shard(0))]))
+    if not c_given:
+        out.append(([Partial()], [Shard(o + 1), Shard(o), None]))
+    return out
+
+
+def _register_sharding() -> None:
+    """The DTensor rules of the GEMM operators the models call: the RASA
+    operator (each rank launches the hand-written kernel on its shards) and
+    the ``out_dtype`` overloads of mm / bmm that the xla engine takes on
+    the card (``models.common._product``), which DTensor has no rule for."""
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+
+    @register_sharding(torch.ops.repro_torch.rasa_mm.default)
+    def _rasa_mm_sharding(a, b, c, schedule, bk, out_dtype):
+        return [(o, [*i, None, None, None]) for o, i in _mm_strategies(c is not None)]
+
+    @register_sharding(aten.mm.dtype)
+    def _mm_dtype_sharding(a, b, out_dtype):
+        return [(o, [*i[:2], None]) for o, i in _mm_strategies(False)]
+
+    @register_sharding(aten.bmm.dtype)
+    def _bmm_dtype_sharding(a, b, out_dtype):
+        return [(o, [*i[:2], None]) for o, i in _mm_strategies(False, batch=True)]
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor import DTensor as _DTensor
+    _register_sharding()
+else:
+    _DTensor = ()
+
+
 def rasa_matmul(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
                 *, schedule: str = "wls", blocks: GemmBlocks | None = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """C (+)= A @ B with the RASA schedule, any 2D shapes.  Forward-only:
-    a backward through the result raises (``FORWARD_ONLY``)."""
+    """C (+)= A @ B with the RASA schedule, any 2D shapes (DTensors: each
+    rank on its shards, the k-chunk that of the full shapes).
+    Forward-only: a backward through the result raises (``FORWARD_ONLY``).
+    Plain tensors call the kernel directly, without the operator's
+    dispatch, whose host time an eager decode step would pay ~200 times."""
+    if isinstance(a, _DTensor) or isinstance(b, _DTensor) or isinstance(c, _DTensor):
+        blocks = blocks or default_blocks(a.shape[0], a.shape[1], b.shape[1])
+        return _rasa_mm(a, b, c, schedule, blocks.bk, out_dtype)
     fn = rasa_gemm_plain if a.device.type == "cpu" else rasa_gemm
     kw = dict(schedule=schedule, blocks=blocks, out_dtype=out_dtype)
     return _ForwardOnly.apply(fn, a, b, c, kw)

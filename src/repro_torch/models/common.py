@@ -13,6 +13,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import EngineConfig, ModelConfig
+from ..distributed.sharding import unshard_dim
 from ..kernels import GemmBlocks, rasa_matmul
 
 
@@ -155,7 +156,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
              ignore_index: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of -log p(label) over valid labels in fp32, their count)."""
-    logits = logits.float()
+    # a DTensor's partial sums are reduced and its vocab gathered first:
+    # DTensor's rule for a gather along a split or partial dim fails on the
+    # CE's index shapes
+    logits = unshard_dim(logits.float(), -1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import EngineConfig, ModelConfig
+from ..distributed.sharding import constrain, is_dtensor, shard_like
 from .common import dot_f32, matmul
 
 # --------------------------------------------------------------------- norms
@@ -174,8 +175,13 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if cache is None or s > 1:
         if cache is not None:
             # in-place: the prompt's k/v fill the cache from position 0
-            cache.k[:, :, :s] = k.to(cache.k.dtype)
-            cache.v[:, :, :s] = v.to(cache.v.dtype)
+            if is_dtensor(cache.k) or is_dtensor(k):
+                for dst, new in ((cache.k, k), (cache.v, v)):
+                    dst, new = shard_like(new.to(dst.dtype), dst)
+                    dst[:, :, :s] = new
+            else:
+                cache.k[:, :, :s] = k.to(cache.k.dtype)
+                cache.v[:, :, :s] = v.to(cache.v.dtype)
             cache.length.fill_(s)
         out = chunked_causal_attention(q, gqa_expand(k, h), gqa_expand(v, h),
                                        scale=scale,
@@ -192,8 +198,9 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         smax = ck.shape[2]
         steps = torch.arange(s, device=x.device)
         write = torch.clamp(cache.length, max=smax - s) + steps
-        ck.index_copy_(2, write, k.to(ck.dtype))
-        cv.index_copy_(2, write, v.to(cv.dtype))
+        for dst, new in ((ck, k), (cv, v)):
+            dst, new = shard_like(new.to(dst.dtype), dst)
+            dst.index_copy_(2, write, new)
         pos = cache.length + steps
         cache.length.add_(s)
         group = h // hkv
@@ -232,11 +239,12 @@ def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
             g = matmul(x, p["w_gate"], engine)
             u = matmul(x, p["w_up"], engine)
         g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-        hid = g * u
+        hid = constrain(g * u, "btf")
     else:
         u = matmul(x, p["w_up"], engine)
         if act == "relu2":               # nemotron squared-ReLU
             hid = torch.square(F.relu(u))
         else:
             hid = F.gelu(u, approximate="tanh")
+        hid = constrain(hid, "btf")
     return matmul(hid, p["w_down"], engine)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..distributed.sharding import constrain
 from .common import dot_f32, matmul
 
 
@@ -64,7 +65,8 @@ def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     else:
         gate = dot_f32(torch.bmm, buf, p["experts_w_gate"], dtype)
         up = dot_f32(torch.bmm, buf, p["experts_w_up"], dtype)
-    return dot_f32(torch.bmm, F.silu(gate) * up, p["experts_w_down"], dtype)
+    inner = constrain(F.silu(gate) * up, "ecf")
+    return dot_f32(torch.bmm, inner, p["experts_w_down"], dtype)
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Routing]:
@@ -103,7 +105,7 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Rou
     gi = torch.arange(g, device=dev)[:, None]
     buf = torch.zeros((g, e, cap + 1, d), dtype=x.dtype, device=dev)
     buf[gi, se, torch.where(keep, slot, cap)] = xf[gi, st]
-    buf_e = buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d)
+    buf_e = constrain(buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d), "ecd")
     out_buf = expert_ffn(p, buf_e).reshape(e, g, cap, d).transpose(0, 1)
 
     # ---- combine: each token's k contributions in ascending expert id ----

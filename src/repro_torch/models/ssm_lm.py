@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..config import EngineConfig, ModelConfig, RunConfig
+from ..distributed.sharding import constrain, place_state, shard_like
 from .common import dtype_of, embed_init, he_init
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
@@ -116,9 +117,9 @@ def _shared_block(sp, x: torch.Tensor, cfg: ModelConfig, engine: EngineConfig,
                   sin, cos, cache: Optional[KVCache]):
     h = rms_norm(x, sp["norm1"], cfg.rms_eps)
     attn_out, new_cache = attention_block(sp, h, cfg, engine, sin, cos, cache)
-    x = x + attn_out
+    x = constrain(x + attn_out, "btd")
     h = rms_norm(x, sp["norm2"], cfg.rms_eps)
-    return x + mlp_block(sp, h, cfg, engine), new_cache
+    return constrain(x + mlp_block(sp, h, cfg, engine), "btd"), new_cache
 
 
 def run_backbone(model: "SSMLanguageModel", x: torch.Tensor, state: HybridState,
@@ -133,9 +134,10 @@ def run_backbone(model: "SSMLanguageModel", x: torch.Tensor, state: HybridState,
         st_l = SSMState(state.ssm.conv[i], state.ssm.ssm[i])
         out, new_st = mamba2_block(layer, rms_norm(x, layer["norm1"], cfg.rms_eps),
                                    cfg, engine, st_l)
-        x = x + out
-        st_l.conv.copy_(new_st.conv)
-        st_l.ssm.copy_(new_st.ssm)
+        x = constrain(x + out, "btd")
+        for dst, new in ((st_l.conv, new_st.conv), (st_l.ssm, new_st.ssm)):
+            dst, new = shard_like(new, dst)
+            dst.copy_(new)
         if every and (i + 1) % every == 0:
             x, _ = _shared_block(model.shared_attn, x, cfg, engine, sin, cos,
                                  state.attn[i // every])
@@ -154,7 +156,7 @@ def run_backbone_train(model: "SSMLanguageModel", x: torch.Tensor, sin=None, cos
 
     def mamba_layer(layer, h):
         out, _ = mamba2_block(layer, rms_norm(h, layer["norm1"], cfg.rms_eps), cfg, engine)
-        return h + out
+        return constrain(h + out, "btd")
 
     def shared(h, sin, cos):
         return _shared_block(model.shared_attn, h, cfg, engine, sin, cos, None)[0]
@@ -207,11 +209,12 @@ class SSMLanguageModel(nn.Module):
         m = self.model
         dtype = dtype or dtype_of(m)
         layer = init_ssm_state(m, batch, dtype, self.device)
-        ssm = SSMState(*(t.expand(m.n_layers, *t.shape).clone() for t in layer))
+        ssm = SSMState(*(place_state(m, t.expand(m.n_layers, *t.shape).clone())
+                         for t in layer))
         apps = n_shared_apps(m)
         shape = (apps, batch, m.n_kv_heads, max_seq, m.resolved_head_dim)
-        k = torch.zeros(shape, dtype=dtype, device=self.device)
-        v = torch.zeros(shape, dtype=dtype, device=self.device)
+        k, v = (place_state(m, torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(2))
         lengths = torch.zeros(apps, dtype=torch.int32, device=self.device)
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         return HybridState(ssm, [KVCache(k[i], v[i], lengths[i]) for i in range(apps)],
@@ -224,7 +227,7 @@ class SSMLanguageModel(nn.Module):
         {"ce", "aux_loss" (0), "n_valid"})."""
         tokens = batch_tensor(self, batch, "tokens")
         b, s = tokens.shape
-        x = embed_tokens(self, tokens)
+        x = constrain(embed_tokens(self, tokens), "btd")
         sin, cos = self._rope(b, s, 0)
         x = run_backbone_train(self, x, sin, cos, self.cfg.parallel.remat)
         ce, n_valid = head_loss(self, x, batch_tensor(self, batch, "labels"))
@@ -239,7 +242,7 @@ class SSMLanguageModel(nn.Module):
         updating the state in place (the position advances by S); returns
         the last position's logits [B, V] and the state."""
         b, s = tokens.shape
-        x = embed_tokens(self, tokens)
+        x = constrain(embed_tokens(self, tokens), "btd")
         sin, cos = self._rope(b, s, 0)
         x = run_backbone(self, x, state, sin, cos)
         logits = logits_from(self, x[:, -1:])

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import EngineConfig, ModelConfig, RunConfig
+from ..distributed.sharding import constrain, place_state
 from .common import chunked_cross_entropy, dtype_of, embed_init, he_init, matmul
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
@@ -166,11 +167,11 @@ def decoder_block(params_l, x: torch.Tensor, cfg: ModelConfig,
     h = rms_norm(x, params_l["norm1"], cfg.rms_eps)
     attn_out, new_cache = attention_block(params_l, h, cfg, engine, sin, cos,
                                           cache)
-    x = x + attn_out
+    x = constrain(x + attn_out, "btd")
     h = rms_norm(x, params_l["norm2"], cfg.rms_eps)
     if cfg.moe is not None:
-        return x + moe_forward(params_l, h, cfg)[0], new_cache
-    return x + mlp_block(params_l, h, cfg, engine), new_cache
+        return constrain(x + moe_forward(params_l, h, cfg)[0], "btd"), new_cache
+    return constrain(x + mlp_block(params_l, h, cfg, engine), "btd"), new_cache
 
 
 def train_block(params_l, x: torch.Tensor, cfg: ModelConfig, engine: EngineConfig,
@@ -180,12 +181,12 @@ def train_block(params_l, x: torch.Tensor, cfg: ModelConfig, engine: EngineConfi
     decoder_block does for training."""
     h = rms_norm(x, params_l["norm1"], cfg.rms_eps)
     attn_out, _ = attention_block(params_l, h, cfg, engine, sin, cos)
-    x = x + attn_out
+    x = constrain(x + attn_out, "btd")
     h = rms_norm(x, params_l["norm2"], cfg.rms_eps)
     if cfg.moe is not None:
         ffn_out, aux = moe_block(params_l, h, cfg)
-        return x + ffn_out, aux
-    return x + mlp_block(params_l, h, cfg, engine), None
+        return constrain(x + ffn_out, "btd"), aux
+    return constrain(x + mlp_block(params_l, h, cfg, engine), "btd"), None
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -368,8 +369,8 @@ class Transformer(nn.Module):
         m = self.model
         shape = (m.n_layers, batch, m.n_kv_heads, max_seq, m.resolved_head_dim)
         dtype = dtype or dtype_of(m)
-        k = torch.zeros(shape, dtype=dtype, device=self.device)
-        v = torch.zeros(shape, dtype=dtype, device=self.device)
+        k, v = (place_state(m, torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(2))
         lengths = torch.zeros(m.n_layers, dtype=torch.int32, device=self.device)
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         return DecodeState([KVCache(k[i], v[i], lengths[i]) for i in range(m.n_layers)],
@@ -383,7 +384,7 @@ class Transformer(nn.Module):
         "n_valid"}).  Differentiable under the xla engine."""
         m = self.model
         patches = batch_tensor(self, batch, "patch_embeds")
-        x = embed_tokens(self, batch_tensor(self, batch, "tokens"), patches)
+        x = constrain(embed_tokens(self, batch_tensor(self, batch, "tokens"), patches), "btd")
         b, s = x.shape[:2]
         sin, cos = self._rope(b, s, 0)
         x, aux = run_layers_train(self.layers, x, m, self.cfg.engine, sin, cos,

@@ -7,7 +7,9 @@ tensor, as ``dict(model.named_parameters())``) and updates the parameters
 and the moments in place, so that the model trains on its own parameters
 with no second copy of the state (the reference donates its state to the
 jitted step for the same reason).  Math is fp32 whatever the storage
-dtypes; parameters and moments are rounded back to theirs.
+dtypes; parameters and moments are rounded back to theirs.  Parameters
+may be DTensors: their moments take the same placements, and every update
+runs on each rank's shards.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def tree_order(names) -> list[str]:
 def adamw_init(params: dict[str, torch.Tensor], dtype: str = "float32") -> AdamWState:
     dt = getattr(torch, dtype)
     device = next(iter(params.values())).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)   # a DTensor's moments share its layout
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m={n: zeros(p) for n, p in params.items()},
                       v={n: zeros(p) for n, p in params.items()})

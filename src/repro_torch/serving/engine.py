@@ -11,8 +11,19 @@ static token and prompt buffers, which each call fills in place; every
 graph of a session allocates from one memory pool.  On the CPU, or with
 ``eager=True``, the same steps run eagerly on the same static state.  A
 capture or a replay that fails raises: there is no fallback to the eager
-path.  The sharded paths wait for the distributed slice (ROADMAP queue 1,
-item 11).
+path.
+
+Inside an active ``distributed.mesh_context`` the session takes the
+sharded steps, ``jit_prefill`` / ``jit_decode_step``: the model's
+parameters distributed by ``_params_shardings`` (``serve_param_sharding``
+"tp" drops FSDP), the decode state by ``decode_state_shardings`` (its KV
+caches written on each rank's shards), the tokens batch over DP.  The
+first step fixes the session's context, no mesh or (mesh, parallel): a
+meshed step distributes the model's own parameters in place, so a step
+under any other context raises.  Its states, graphs and steps are keyed
+on the batch under that context, as the reference's compiled functions
+are on (batch, mesh, parallel).  Logits come back gathered, as plain
+tensors.
 """
 
 from __future__ import annotations
@@ -22,8 +33,51 @@ from typing import Callable
 
 import torch
 
+from ..distributed.sharding import (MeshContext, NamedSharding, activation_spec,
+                                    current_ctx, distribute, full, shardings_for)
+from ..distributed.sharding import decode_state_shardings  # noqa: F401 -- the reference's name
 from ..models import Model, resolve_device
 from ..models.transformer import token_shape
+
+
+def _params_shardings(model: Model, ctx: MeshContext) -> dict:
+    """Distribute the model's parameters for serving (in place) and return
+    {name: NamedSharding}: the training layout, or with
+    ``serve_param_sharding="tp"`` TP only (no FSDP gathers per step)."""
+    if model.cfg.parallel.serve_param_sharding == "tp":
+        ctx = MeshContext(mesh=ctx.mesh,
+                          parallel=dataclasses.replace(ctx.parallel, fsdp=False))
+    return shardings_for(model, ctx)
+
+
+def _token_sharding(ctx: MeshContext, shape) -> NamedSharding:
+    """Tokens batch over DP (when the batch divides): a prompt [B, S(, cb)]
+    or a decode step's [B(, cb)]."""
+    return NamedSharding(ctx.mesh, activation_spec("tokens", ctx, tuple(shape)))
+
+
+def jit_prefill(model: Model, ctx: MeshContext) -> Callable:
+    """The sharded prefill: (tokens, state) -> (logits, state), with the
+    parameters distributed (``_params_shardings``), the tokens placed batch
+    over DP and the state as ``init_decode_state`` made it under ``ctx``."""
+    _params_shardings(model, ctx)
+
+    def prefill(tokens, state):
+        return model.prefill(distribute(tokens, _token_sharding(ctx, tokens.shape)), state)
+    return prefill
+
+
+def jit_decode_step(model: Model, ctx: MeshContext) -> Callable:
+    """The sharded decode step: (token, state) -> (logits, state), placed
+    as ``jit_prefill``."""
+    _params_shardings(model, ctx)
+
+    def decode_step(token, state):
+        return model.decode_step(distribute(token, _token_sharding(ctx, token.shape)), state)
+    return decode_step
+
+
+_NO_STEP = object()   # a session's context before its first step
 
 
 @dataclasses.dataclass
@@ -46,13 +100,17 @@ class ServeSession:
     max_seq: int = 128
     device: str | torch.device = "cuda"
     eager: bool = False
-    #: static decode state and token buffer per batch size
+    #: static decode state and token buffer per batch
     _slots: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: (prefill, decode_step) per batch
+    _fns_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     #: static prompt buffer per (batch, prompt length)
     _prompts: dict = dataclasses.field(default_factory=dict, repr=False)
     _graphs: dict = dataclasses.field(default_factory=dict, repr=False)
     _pool: object = dataclasses.field(default=None, repr=False)
     _batch: int | None = dataclasses.field(default=None, repr=False)
+    #: the context of the first step: (mesh, parallel), or None for no mesh
+    _mesh: object = dataclasses.field(default=_NO_STEP, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -65,9 +123,33 @@ class ServeSession:
         """Whether the steps replay CUDA graphs (a CUDA device, not eager)."""
         return self.device.type == "cuda" and not self.eager
 
+    def _check_mesh(self) -> None:
+        """Fix the session's context at its first step; raise under another."""
+        ctx = current_ctx()
+        key = None if ctx is None else (ctx.mesh, ctx.parallel)
+        if self._mesh is _NO_STEP:
+            self._mesh = key
+        elif self._mesh != key:
+            raise RuntimeError(
+                "ServeSession: a step under another mesh context than its first "
+                f"({'no mesh' if self._mesh is None else self._mesh}): a meshed "
+                "step distributes the model's parameters in place; make a session "
+                "(and a model) for each context")
+
+    def _fns(self, batch: int):
+        """(prefill, decode_step) for ``batch`` under the session's mesh
+        (the model's own steps without one), made once per batch."""
+        fns = self._fns_cache.get(batch)
+        if fns is None:
+            ctx = current_ctx()
+            fns = ((self.model.prefill, self.model.decode_step) if ctx is None else
+                   (jit_prefill(self.model, ctx), jit_decode_step(self.model, ctx)))
+            self._fns_cache[batch] = fns
+        return fns
+
     def _slot(self, batch: int):
-        """(state, token buffer) of ``batch``, made on first use; the
-        buffer is [B], or [B, n_codebooks] for the audio family."""
+        """(state, token buffer) of ``batch``, made on first use; the buffer
+        is [B], or [B, n_codebooks] for the audio family."""
         slot = self._slots.get(batch)
         if slot is None:
             slot = (self.model.init_decode_state(batch, self.max_seq),
@@ -108,21 +190,23 @@ class ServeSession:
         b, s = prompts.shape[:2]
         if s > self.max_seq:
             raise ValueError(f"prompt {s} exceeds max_seq {self.max_seq}")
+        self._check_mesh()
+        prefill, decode = self._fns(b)
         state, token = self._slot(b)
         self._batch = b
         if not self.graphed:
             state.zero_()
-            return self.model.prefill(prompts, state)[0]
+            return full(prefill(prompts, state)[0])
         buf = self._prompts.get((b, s))
         if buf is None:
             buf = self._prompts[(b, s)] = torch.zeros(
                 prompts.shape, dtype=prompts.dtype, device=self.device)
         cfg = self.model.cfg
-        self._capture(("prefill", b, s, cfg), lambda: self.model.prefill(buf, state)[0])
-        self._capture(("decode", b, cfg), lambda: self.model.decode_step(token, state)[0])
+        self._capture(("prefill", b, s, cfg), lambda: prefill(buf, state)[0])
+        self._capture(("decode", b, cfg), lambda: decode(token, state)[0])
         buf.copy_(prompts)
         state.zero_()
-        return self._graphs[("prefill", b, s, cfg)].replay()
+        return full(self._graphs[("prefill", b, s, cfg)].replay())
 
     @torch.no_grad()
     def decode_step(self, tokens) -> torch.Tensor:
@@ -134,15 +218,16 @@ class ServeSession:
         if b != self._batch:
             raise ValueError(f"decode_step of batch {b} after a prefill of "
                              f"batch {self._batch}")
+        self._check_mesh()
         state, token = self._slot(b)
         if not self.graphed:
-            return self.model.decode_step(tokens, state)[0]
+            return full(self._fns(b)[1](tokens, state)[0])
         graph = self._graphs.get(("decode", b, self.model.cfg))
         if graph is None:
             raise RuntimeError("the model's config changed after prefill: "
                                "no decode step was captured under it")
         token.copy_(tokens)
-        return graph.replay()
+        return full(graph.replay())
 
     @torch.no_grad()
     def generate(self, prompts, steps: int) -> torch.Tensor:

@@ -5,6 +5,8 @@
     loop restores the latest checkpoint and continues (bounded retries);
   * straggler watch    -- steps slower than ``straggler_factor`` x the
     running median are logged and counted;
+  * elastic restart    -- the step-indexed data pipeline and the resharding
+    restore let a resumed run continue on a different mesh;
   * preemption         -- SIGTERM triggers checkpoint-and-exit at the next
     step boundary.
 
@@ -64,12 +66,14 @@ class StragglerMonitor:
 class TrainLoop:
     def __init__(self, step_fn: Callable, state: TrainState,
                  batch_fn: Callable[[int], Any], cfg: LoopConfig,
+                 state_shardings: Any = None,
                  fault_hook: Callable[[int], None] | None = None,
                  log_fn: Callable[[str], None] = print):
         self.step_fn = step_fn
         self.state = state
         self.batch_fn = batch_fn
         self.cfg = cfg
+        self.state_shardings = state_shardings  # the state's layout (training.step)
         self.fault_hook = fault_hook          # tests inject failures here
         self.log = log_fn
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
@@ -87,8 +91,9 @@ class TrainLoop:
         return int(self.state.step)
 
     def _restore(self) -> None:
-        """Restore the newest checkpoint into the state, in place."""
-        step = restore_into(self.ckpt.directory, self.state)
+        """Restore the newest checkpoint into the state, in place (elastic:
+        onto the state's current shardings, whatever mesh wrote it)."""
+        step = restore_into(self.ckpt.directory, self.state, shardings=self.state_shardings)
         self.log(f"[loop] restored checkpoint at step {step}")
 
     def run(self) -> TrainState:

@@ -518,3 +518,59 @@ def test_replay_calls_gather_the_replays_inputs_and_events():
         from repro_torch.obs import record
         chip_smoke.require_same_events(be, record.replay_many(traces, cfgs, params,
                                                               backend="numpy"), events)
+
+
+def test_launch_run_names_its_phases():
+    part = chip_smoke.result_line("H100", 1, chip_smoke.LAUNCH_PHASES)
+    assert part["phases"] == ["build", "launch"] and part["ok"] is True
+
+
+def _cli_args(module, argv):
+    """``argv`` parsed by the launcher's own parser (its main, with the
+    parser's parse_args stopped before anything runs)."""
+    import argparse
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def parse(self, args=None, namespace=None):
+        seen["args"] = argparse.ArgumentParser.parse_known_args(self, args, namespace)[0]
+        raise Stop
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(argparse.ArgumentParser, "parse_args", parse)
+    try:
+        with pytest.raises(Stop):
+            module.main(argv)
+    finally:
+        mp.undo()
+    return vars(seen["args"])
+
+
+def test_launch_command_lines_are_the_launchers():
+    """Phase 13's command lines parse under the launchers' own CLIs as the
+    phase means them: qwen3-1.7b, batch 4 x prompt 128, 32 steps; training
+    at phase 10's 8 x 512 for 3 steps with one checkpoint, on the phase's
+    device."""
+    from repro_torch.launch import serve, train
+    got = _cli_args(serve, chip_smoke.launch_serve_argv())
+    assert got == {"arch": "qwen3-1.7b", "smoke": False, "batch": chip_smoke.BATCH,
+                   "prompt_len": chip_smoke.PROMPT, "steps": chip_smoke.STEPS,
+                   "device": chip_smoke.DEV}
+    got = _cli_args(train, chip_smoke.launch_train_argv("build/x"))
+    assert got == {"arch": "qwen3-1.7b", "smoke": False, "steps": 3, "global_batch": 8,
+                   "seq_len": 512, "lr": 3e-4, "checkpoint_dir": "build/x",
+                   "checkpoint_every": 3, "production_mesh": False,
+                   "device": chip_smoke.DEV}
+
+
+def test_compare_losses_holds_the_meshed_run_to_the_plain_one():
+    assert chip_smoke.compare_losses([2.0, 1.5], [2.0, 1.5]) == {"max_rel": 0.0,
+                                                                  "bit_equal": True}
+    near = chip_smoke.compare_losses([2.0, 1.5005], [2.0, 1.5])
+    assert not near["bit_equal"] and near["max_rel"] == pytest.approx(0.0005 / 1.5)
+    with pytest.raises(AssertionError, match="rel"):
+        chip_smoke.compare_losses([2.0, 1.51], [2.0, 1.5])
+    with pytest.raises(AssertionError, match="steps"):
+        chip_smoke.compare_losses([2.0], [2.0, 1.5])
