@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build, check, time, serve, train,
-simulate, batch, launch.
+simulate, batch, launch, dry-run, and run the examples.
 
     python3 chip_smoke.py
 
@@ -197,6 +197,26 @@ Phases, each of which raises (exit code != 0) when it fails:
      ``python3 chip_smoke.py launch`` runs the build and this phase alone,
      then checks and times the wls kernel at qwen3-1.7b's shapes as
      phases 3-4 do ("phases": ["build", "launch"]).
+ 14. the dry run (src/repro_torch/launch/dryrun.py): its CLI in
+     subprocesses, all at once, on qwen3-1.7b x decode_32k and x train_4k
+     and zamba2-2.7b x long_500k (its KV cache split along the sequence),
+     each on a fake world of 256 ranks, the (16, 16) mesh: per-device peak
+     GiB, FLOPs, bytes, collective bytes, trace seconds, and
+     roofline.format_report under H100; then the one-card cross-check:
+     phase 10's train step (qwen3-1.7b, xla, 8 x 512 in 2 microbatches)
+     and phase 5's xla serving steps (prefill of 4 x 128, decode at a
+     cache of 160) dry-run on a fake world of one, against the card's
+     measurements at those shapes (phases 10 and 5's; measured here when
+     the phase runs alone): the predicted argument bytes equal to the real
+     state's (or the phase raises), predicted peak / max_memory_allocated
+     and roofline step time / measured step time printed.
+     ``python3 chip_smoke.py dryrun`` runs the build and this phase alone
+     ("phases": ["build", "dryrun"]);
+ 15. the examples' twins (examples/torch_*.py) on the card, each a
+     subprocess, all at once, at their defaults (the train twin 4 steps):
+     any exit other than 0 fails the run.  ``python3 chip_smoke.py
+     examples`` runs the build and this phase alone ("phases": ["build",
+     "examples"]).
 The line before the last is the card line, the one before it the kernels'
 JSON summary; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -1379,6 +1399,7 @@ def serve_engines(torch, rk, cfg, model, prompts, names, repeats: int = 1) -> di
                                      f"and {chained} programmatic edges")
         res = {"logits": logits, "tokens": tokens, "launches": counts,
                "eager_launches": eager_counts, "max_memory_bytes": peak,
+               "argument_bytes": serve_argument_bytes(model, graphed, b),
                "decode_graph": contents}
         for mode, rs in runs.items():
             prefill = [r["prefill_ms"] for r in rs]
@@ -1868,6 +1889,7 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
         torch.cuda.empty_cache()
         model = build_model(cfg, device=DEV, seed=0)
         state = init_train_state(model)
+        argument_bytes = train_argument_bytes(state, data.batch(0))
         n_params = check_gradients(torch, model, data.batch(0))
         print(f"train {m.name}: {n_params} parameters, each with a finite, nonzero gradient")
         torch.cuda.reset_peak_memory_stats()
@@ -1948,7 +1970,8 @@ def train(torch, rk, arch: str, card: str, rasa: bool) -> dict:
            "restored_bit_equal": equal, "restore_s": restore_s,
            "restore_extra_gb": restore_extra_gb, "run_s": run_s,
            "checkpoint_gb_on_disk": ckpt_gb,
-           "peak_gb_steps_0_3": snap["peak"] / 1e9, "model_flops": flops,
+           "peak_gb_steps_0_3": snap["peak"] / 1e9, "peak_bytes_steps_0_3": snap["peak"],
+           "argument_bytes": argument_bytes, "model_flops": flops,
            "bf16_peak_share": flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
            "parameters": m.param_count(), "rasa": rasa_row, "trace": trace, "card": card}
     print(f"train {m.name}: median step {ms:.3f} ms (steps 1-{TRAIN_RESUME_AT - 1}, in the "
@@ -3485,6 +3508,288 @@ def launch_kernel_row(torch, rk, launched: dict) -> dict:
             "work": "one qwen3-1.7b decode step of GEMMs (M=4, bf16)"}
 
 
+# ------------------------------------------------------------------ dry run
+
+#: phase 14's production cells: (arch, shape), each a subprocess of the CLI
+DRYRUN_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
+                ("zamba2-2.7b", "long_500k"))
+DRYRUN_ARCH = "qwen3-1.7b"            # the one-card cross-check: phases 5 and 10's model
+DRYRUN_PHASES = ("build", "dryrun")
+EXAMPLES_PHASES = ("build", "examples")
+PREDICTION_DRYRUN = (
+    "the dry run on a fake world of 256 ranks, traced on the card's host: qwen3-1.7b "
+    "decode_32k 2-4 GiB/dev (its 481 GB KV cache split 256 ways), bound by memory; "
+    "train_4k 1-10 GiB/dev, useful FLOPs 55-80% (the remat's re-forward); zamba2-2.7b "
+    "long_500k (its cache split along the sequence) 0.2-1 GiB/dev; each cell traced in "
+    "10-150 s. One card, a world of one: predicted argument bytes equal to the state's; "
+    "predicted peak / max_memory_allocated 0.8-1.2 for the train step (8 x 512, 2 "
+    "microbatches) and 0.5-1.2 for serving; roofline step time / measured step time "
+    "0.01-0.10 for the train step (phase 10's FLOP share 0.0384) and 0.1-0.4 for the "
+    "graphed xla decode step. Phase 15: the five twins exit 0, 30-120 s together.")
+
+#: the one-card cross-check, run in a process of its own (it starts a fake
+#: world of one): phase 10's train step and phase 5's xla serving steps
+#: traced by the dry run; its last line is their counts as JSON
+DRYRUN_ONE_CARD = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.config import EngineConfig, TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+base = dataclasses.replace(get_config({arch!r}), engine=EngineConfig(kind="xla"))
+train = dataclasses.replace(base, train=TrainConfig(**{train!r}))
+out = {{}}
+with dryrun.fake_world(1):
+    mesh = make_host_mesh(device="cuda")
+    out["train"] = dryrun.trace(train, "train", {seq}, {global_batch}, mesh, "cuda")
+    out["prefill"] = dryrun.trace(base, "prefill", {prompt}, {batch}, mesh, "cuda")
+    out["decode"] = dryrun.trace(base, "decode", {max_seq}, {batch}, mesh, "cuda")
+print(json.dumps(out))
+"""
+
+
+def start_dryruns(out_dir: Path) -> dict:
+    """Phase 14's subprocesses, all started at once: the CLI on each of
+    DRYRUN_CELLS (artifacts under ``out_dir``) and the one-card cross-check."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--out", str(out_dir), "--force"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    code = DRYRUN_ONE_CARD.format(arch=DRYRUN_ARCH, train=TRAIN, seq=TRAIN["seq_len"],
+                                  global_batch=TRAIN["global_batch"], prompt=PROMPT,
+                                  batch=BATCH, max_seq=PROMPT + STEPS)
+    procs["one_card"] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)
+    return procs
+
+
+def finish_process(name, proc, timeout: float = 600) -> str:
+    """The subprocess's standard output; raises (with its errors' end) if it
+    exits with another code than 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{name}: no end within {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: exit {proc.returncode}\n{out[-3000:]}\n{err[-6000:]}")
+    return out
+
+
+def stop_processes(procs) -> None:
+    """Kill and reap every subprocess of ``procs`` still running (a phase
+    that fails leaves none behind)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def train_argument_bytes(state, batch: dict) -> int:
+    """The bytes of a train step's arguments: every leaf of the TrainState
+    (parameters, AdamW moments, the two step counts) and the batch."""
+    from repro_torch.checkpoint.store import flatten_with_names
+    return tensor_bytes(t for _, t in flatten_with_names(state)) + sum(
+        v.nbytes for v in batch.values())
+
+
+def serve_argument_bytes(model, session, batch: int) -> int:
+    """The bytes of a serving step's arguments: the model's parameters, the
+    session's decode state of ``batch`` (stacked caches, lengths, position)
+    and its token buffer."""
+    state, token = session._slots[batch]
+    return (tensor_bytes(model.parameters()) + tensor_bytes((*state.buffers, state.position))
+            + tensor_bytes((token,)))
+
+
+def measure_train_step(torch) -> dict:
+    """Phase 14 alone: phase 10's train step (qwen3-1.7b, xla, 8 x 512 in 2
+    microbatches) on the card: its arguments' bytes, the median of steps
+    1-3 and the peak device memory of steps 0-3 (the state included)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), train=TrainConfig(**TRAIN))
+    data = SyntheticLMDataset(cfg.model, seq_len=TRAIN["seq_len"],
+                              global_batch=TRAIN["global_batch"], seed=1)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=DEV, seed=0)
+    state = init_train_state(model)
+    argument = train_argument_bytes(state, data.batch(0))
+    step_fn, times = build_train_step(model), []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, data.batch(s))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return {"argument_bytes": argument, "step_ms": statistics.median(times[1:]),
+            "peak_bytes": peak}
+
+
+def measure_serve(torch) -> dict:
+    """Phase 14 alone: phase 5's qwen3-1.7b xla session on the card (graphed,
+    batch 4, prompt 128, 32 steps): its arguments' bytes, decode ms/step
+    and the peak device memory of its first generation (the capture)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeSession
+    base = get_config(DRYRUN_ARCH)
+    cfg = dataclasses.replace(base, engine=engine_of(base, "xla"))
+    torch.cuda.empty_cache()
+    model, prompts = build_served(torch, cfg, PROMPT)
+    session = ServeSession(model, max_seq=PROMPT + STEPS, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    session.generate(prompts, STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    run = timed_generation(torch, session, prompts)
+    argument = serve_argument_bytes(model, session, BATCH)
+    del model, session
+    torch.cuda.empty_cache()
+    return {"argument_bytes": argument, "decode_ms": run["decode_ms"], "peak_bytes": peak}
+
+
+def dryrun_phase(torch, card: str, train_row: dict | None = None,
+                 serve_row: dict | None = None) -> dict:
+    """Phase 14: the dry run.  Its CLI on DRYRUN_CELLS (a fake world of 256
+    ranks each, in subprocesses), their counts and format_report under
+    H100; then the one-card cross-check: phase 10's train step and phase 5's
+    xla serving steps dry-run on a fake world of one, against the card's
+    measurements at the same shapes (``train_row``, ``serve_row``: phases
+    10 and 5's, or measured here when the phase runs alone).  The predicted
+    argument bytes must equal the real ones; the peak and roofline ratios
+    are printed."""
+    import shutil
+    from repro_torch.roofline import H100, analyze_all, analyze_cell, format_report
+    print("prediction (written before the first run of phase 14): " + PREDICTION_DRYRUN)
+    t0 = time.perf_counter()
+    if train_row is None:
+        train_row = measure_train_step(torch)
+    if serve_row is None:
+        serve_row = measure_serve(torch)
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t_dry = time.perf_counter()
+    procs = start_dryruns(out_dir)
+    try:
+        outputs = {key: finish_process(f"dryrun {key}", proc) for key, proc in procs.items()}
+    finally:
+        stop_processes(procs.values())
+    dry_s = time.perf_counter() - t_dry
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        r = json.loads((out_dir / f"{arch}__{shape}__pod1.json").read_text())
+        colls = {k: v for k, v in r["collectives_per_device_bytes"].items()
+                 if not k.endswith("_count")}
+        cells[f"{arch}|{shape}"] = {
+            "peak_gib": r["memory"]["peak_bytes_per_device"] / 2**30,
+            "flops": r["cost_per_device"]["flops"],
+            "bytes_accessed": r["cost_per_device"]["bytes_accessed"],
+            "collective_bytes": sum(colls.values()), "trace_s": r["lower_s"]}
+        print(f"dryrun {arch} x {shape} x 16x16: peak {cells[f'{arch}|{shape}']['peak_gib']:.3f} "
+              f"GiB/dev, flops/dev {r['cost_per_device']['flops']:.4g}, bytes/dev "
+              f"{r['cost_per_device']['bytes_accessed']:.4g}, collectives/dev "
+              f"{json.dumps(r['collectives_per_device_bytes'])}, trace {r['lower_s']} s")
+    report = format_report(analyze_all(out_dir), H100)
+    print("dryrun roofline (H100: 989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink a "
+          "direction; data sheet, not measured):\n" + report)
+
+    one = json.loads(outputs["one_card"].strip().splitlines()[-1])
+    predicted = {
+        "train": one["train"], "decode": one["decode"],
+        "serve_peak_bytes": max(one[k]["memory"]["peak_bytes_per_device"]
+                                for k in ("prefill", "decode"))}
+    for name, want in (("train", train_row["argument_bytes"]),
+                       ("decode", serve_row["argument_bytes"])):
+        got = one[name]["memory"]["argument_bytes_per_device"]
+        if got != want:
+            raise AssertionError(f"dryrun one card {name}: predicted argument bytes {got}, "
+                                 f"the card's state {want}")
+
+    def roofline_s(counts) -> float:
+        cell = {"arch": DRYRUN_ARCH, "shape": "train_4k", "devices": 1, **counts}
+        return analyze_cell(cell, H100).step_time_s
+
+    ratios = {
+        "train_peak": predicted["train"]["memory"]["peak_bytes_per_device"]
+        / train_row["peak_bytes"],
+        "serve_peak": predicted["serve_peak_bytes"] / serve_row["peak_bytes"],
+        "train_roofline_over_measured": roofline_s(one["train"]) / (train_row["step_ms"] / 1e3),
+        "decode_roofline_over_measured": roofline_s(one["decode"]) / (serve_row["decode_ms"] / 1e3)}
+    print(f"dryrun one card {DRYRUN_ARCH}: argument bytes equal (train "
+          f"{train_row['argument_bytes']}, decode {serve_row['argument_bytes']}); train step "
+          f"(8 x 512, 2 microbatches): predicted peak "
+          f"{predicted['train']['memory']['peak_bytes_per_device'] / 1e9:.3f} GB / measured "
+          f"{train_row['peak_bytes'] / 1e9:.3f} GB = {ratios['train_peak']:.4f}; roofline "
+          f"{roofline_s(one['train']) * 1e3:.3f} ms / measured {train_row['step_ms']:.3f} ms = "
+          f"{ratios['train_roofline_over_measured']:.4f}; xla serving: predicted peak "
+          f"{predicted['serve_peak_bytes'] / 1e9:.3f} GB / measured "
+          f"{serve_row['peak_bytes'] / 1e9:.3f} GB = {ratios['serve_peak']:.4f}; decode "
+          f"roofline {roofline_s(one['decode']) * 1e3:.4f} ms / measured "
+          f"{serve_row['decode_ms']:.3f} ms = {ratios['decode_roofline_over_measured']:.4f}; "
+          f"traces {one['train']['lower_s']} / {one['prefill']['lower_s']} / "
+          f"{one['decode']['lower_s']} s | {card}")
+    out = {"cells": cells, "one_card": {"predicted": one, "measured": {
+        "train": train_row, "serve": serve_row}, "ratios": ratios},
+           "dryrun_s": dry_s, "phase_s": time.perf_counter() - t0, "card": card}
+    print(f"dryrun: phase {out['phase_s']:.1f} s, the dry runs {dry_s:.1f} s (concurrent)")
+    return out
+
+
+#: phase 15: each twin and its arguments (the others at their defaults)
+EXAMPLES = {"torch_quickstart.py": (), "torch_serve_lm.py": (),
+            "torch_train_lm.py": ("--steps", "4"), "torch_chip_design_space.py": (),
+            "torch_rasa_design_space.py": ()}
+
+
+def examples_phase(torch, card: str) -> dict:
+    """Phase 15: the five examples' twins on the card, each a subprocess
+    (all at once), each at its defaults but the train twin (4 steps, its
+    checkpoints under build/); any exit other than 0 fails the phase."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train-lm-", dir=ROOT / "build")
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for script, args in EXAMPLES.items():
+            extra = ("--ckpt", ckpt) if script == "torch_train_lm.py" else ()
+            procs[script] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / script), *args, *extra], cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        rows = {}
+        for script, (started, proc) in procs.items():
+            out = finish_process(f"examples {script}", proc)
+            rows[script] = {"s": time.perf_counter() - started, "stdout": out}
+            print(f"examples {script} ({time.perf_counter() - started:.1f} s):\n"
+                  + "\n".join("  " + line for line in out.strip().splitlines()[-12:]))
+    finally:
+        stop_processes(proc for _, proc in procs.values())
+        shutil.rmtree(ckpt, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    print(f"examples: {len(rows)} twins exited 0 on the card in {phase_s:.1f} s | {card}")
+    return {"scripts": {k: v["s"] for k, v in rows.items()}, "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -3532,6 +3837,14 @@ def main() -> int:
         launched = launch_phase(torch, rk, card)
         return finish(torch, t_start, [launch_kernel_row(torch, rk, launched)], card, kind,
                       phases=LAUNCH_PHASES)
+    if sys.argv[1:] == ["dryrun"]:            # the build and phase 14 alone
+        phase("dryrun")
+        print("dryrun: " + json.dumps(dryrun_phase(torch, card)))
+        return finish(torch, t_start, [], card, kind, phases=DRYRUN_PHASES)
+    if sys.argv[1:] == ["examples"]:          # the build and phase 15 alone
+        phase("examples")
+        print("examples: " + json.dumps(examples_phase(torch, card)))
+        return finish(torch, t_start, [], card, kind, phases=EXAMPLES_PHASES)
     qwen, mamba, zamba = (get_config(a) for a in ("qwen3-1.7b", "mamba2-130m",
                                                   "zamba2-2.7b"))
     print("prediction (written before the first run of the graphed session): " + PREDICTION)
@@ -3584,6 +3897,19 @@ def main() -> int:
     batched = batcher_phase(torch, card, ptxas)
     phase("launch")
     launched = launch_phase(torch, rk, card)
+    phase("dryrun")
+    qwen_train = trained[DRYRUN_ARCH]
+    dried = dryrun_phase(
+        torch, card,
+        train_row={"argument_bytes": qwen_train["argument_bytes"],
+                   "step_ms": qwen_train["median_step_ms"],
+                   "peak_bytes": qwen_train["peak_bytes_steps_0_3"]},
+        serve_row={"argument_bytes": results["xla"]["argument_bytes"],
+                   "decode_ms": results["xla"]["graphed"]["decode_ms_per_step"],
+                   "peak_bytes": results["xla"]["max_memory_bytes"]})
+    print("dryrun: " + json.dumps(dried))
+    phase("examples")
+    print("examples: " + json.dumps(examples_phase(torch, card)))
     by_model = {"qwen3-1.7b": results, **families, **reduced}
 
     bound_by = {phase: max(("bytes", "operations"), key=lambda b: step[b][phase])

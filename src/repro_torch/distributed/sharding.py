@@ -37,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Any, Mapping
 
 import torch
@@ -45,7 +44,16 @@ from torch import nn
 
 from ..config import ParallelConfig
 
-_STATE = threading.local()
+
+class _State:
+    """The active mesh context: the process's, not a thread's, since the
+    autograd engine runs a CUDA backward (and a checkpoint's recomputed
+    forward) on a thread of its own, which must lay tensors out as the
+    forward did."""
+    ctx: "MeshContext | None" = None
+
+
+_STATE = _State()
 
 #: partition spec of one tensor: per dim, None, an axis name or a tuple of them
 Spec = tuple
@@ -79,7 +87,7 @@ class MeshContext:
 
 
 def current_ctx() -> MeshContext | None:
-    return getattr(_STATE, "ctx", None)
+    return _STATE.ctx
 
 
 @contextlib.contextmanager
@@ -87,7 +95,7 @@ def mesh_context(mesh, parallel: ParallelConfig):
     """Make ``mesh`` the active mesh for ``parallel``; plain tensors mix
     with DTensors as replicated ones inside."""
     from torch.distributed.tensor.experimental import implicit_replication
-    prev = getattr(_STATE, "ctx", None)
+    prev = _STATE.ctx
     _STATE.ctx = MeshContext(mesh, parallel)
     try:
         with implicit_replication():
@@ -258,22 +266,247 @@ def unshard_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if target == tuple(x.placements) else x.redistribute(x.device_mesh, target)
 
 
+def _batch_axes(ctx: MeshContext, batch: int) -> tuple[str, ...]:
+    """The data axes a batch of ``batch`` splits over: all of them, else the
+    innermost ones that divide it, else none."""
+    dp = ctx.dp_axes
+    for i in range(len(dp)):
+        if batch % ctx.axes_size(dp[i:]) == 0:
+            return dp[i:]
+    return ()
+
+
+def map_shards(fn, args: tuple, dims: tuple, out_dims):
+    """``fn(*args)`` on each rank's shards, for a computation independent
+    along a batch and a heads axis.  ``dims[i]`` is (the batch dim, the
+    heads dim) of ``args[i]`` (None where it has none, or for an arg that
+    is None), ``out_dims`` those of fn's result (a tuple of them for a
+    tuple result).  Under a mesh context with a DTensor among the args,
+    each arg is laid out with its batch split over the data axes and its
+    heads over "model" (each where it divides; else that axis repeats the
+    work), its other splits and partial sums gathered; fn runs on the local
+    shards and its results come back as DTensors of that layout.  Else
+    fn(*args).  GSPMD partitions such a computation the same way; DTensor's
+    rules for the reshapes inside it differ between torch versions."""
+    ctx = current_ctx()
+    if ctx is None or not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ctx.mesh
+    batch = next(a.shape[d[0]] for a, d in zip(args, dims) if d[0] is not None)
+    heads = next((a.shape[d[1]] for a, d in zip(args, dims) if d[1] is not None), None)
+    batch_axes = _batch_axes(ctx, batch)
+    split_heads = (heads is not None and "model" in mesh.mesh_dim_names
+                   and heads % ctx.axes_size("model") == 0)
+
+    def layout(t: torch.Tensor, batch_dim, heads_dim) -> tuple:
+        out = []
+        for name in mesh.mesh_dim_names:
+            if name in batch_axes and batch_dim is not None:
+                out.append(Shard(batch_dim % t.dim()))
+            elif name == "model" and split_heads and heads_dim is not None:
+                out.append(Shard(heads_dim % t.dim()))
+            else:
+                out.append(Replicate())
+        return effective(tuple(out), mesh)
+
+    def local(a, d):
+        if a is None:
+            return None
+        target = layout(a, *d)
+        if not is_dtensor(a):
+            return distribute(a, NamedSharding(mesh, target)).to_local()
+        return (a if tuple(a.placements) == target else a.redistribute(mesh, target)).to_local()
+
+    out = fn(*(local(a, d) for a, d in zip(args, dims)))
+    wrap = lambda t, d: None if t is None else DTensor.from_local(t, mesh, layout(t, *d),
+                                                                  run_check=False)
+    if isinstance(out, tuple):
+        return tuple(wrap(t, d) for t, d in zip(out, out_dims))
+    return wrap(out, out_dims)
+
+
+def _reshape_groups(src: tuple, dst: tuple) -> list[tuple[list[int], list[int]]]:
+    """The (source dims, target dims) runs of a reshape from ``src`` to
+    ``dst``: dims whose sizes multiply to the same product; a dim of size
+    1 stands alone."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        if i < len(src) and src[i] == 1:
+            groups.append(([i], []))
+            i += 1
+            continue
+        if j < len(dst) and dst[j] == 1:
+            groups.append(([], [j]))
+            j += 1
+            continue
+        gi, gj, pi, pj = [i], [j], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while pi != pj:
+            if pi < pj:
+                gi.append(i)
+                pi *= src[i]
+                i += 1
+            else:
+                gj.append(j)
+                pj *= dst[j]
+                j += 1
+        groups.append((gi, gj))
+    return groups
+
+
+def _view_layout(x: torch.Tensor, dst: tuple) -> torch.Tensor:
+    """DTensor ``x`` with each split gathered (``Replicate``) that a view to
+    ``dst`` cannot keep: a split dim merged behind another dim, or split
+    into pieces whose first does not divide by its shard count."""
+    from torch.distributed.tensor import Replicate
+    src = tuple(x.shape)
+    mesh, placements = x.device_mesh, list(x.placements)
+    for gi, gj in _reshape_groups(src, dst):
+        if len(gi) == 1 and len(gj) <= 1:
+            continue
+        for d in gi:
+            splits = [m for m, p in enumerate(placements) if p.is_shard(d)]
+            count = math.prod(mesh.size(m) for m in splits)
+            keep = d == gi[0] and src[d] % count == 0 and (
+                len(gj) == 1 or (gj and dst[gj[0]] % count == 0))
+            if not keep:
+                for m in splits:
+                    placements[m] = Replicate()
+    return x if placements == list(x.placements) else x.redistribute(mesh, placements)
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor's reshape whose backward reshapes the gradient back the
+    same way (gathering what that view cannot keep)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _view_layout(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _view_layout(g, ctx.shape).reshape(ctx.shape), None
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)``.  A DTensor first has gathered each split that
+    the view cannot keep, and so has its gradient on the way back (some
+    torch versions' DTensor refuses such a view outright, others rewrite
+    it into strided shards; the gather gives the same numbers on all).  A
+    plain tensor is reshaped as it is."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    dst = list(shape)
+    if -1 in dst:
+        known = math.prod(d for d in dst if d != -1)
+        dst[dst.index(-1)] = x.numel() // known
+    return _Reshape.apply(x, tuple(dst))
+
+
+def single_split(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose dims are each split over one mesh dim at most: a dim
+    split over several keeps the innermost split and is gathered over the
+    others (a lookup's sharding rule takes one mesh dim a tensor dim); a
+    plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    target, seen = list(x.placements), set()
+    for m in reversed(range(len(target))):
+        p = target[m]
+        if p.is_shard():
+            if p.dim in seen:
+                target[m] = Replicate()
+            seen.add(p.dim)
+    if target == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
 def shard_like(src: torch.Tensor, dst: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(dst's local shard, src laid out as dst and local) for an in-place
     write of src into dst on each rank's own shard (DTensor has no rule for
     a slice assignment or an ``index_copy_`` into a sharded tensor).  dst
     must not be sharded along the sequence (dim 2 of a cache), where the
-    write position picks the rank.  For a plain dst: (dst, src gathered)."""
+    write position picks the rank: ``write_prefix`` and ``write_at`` write
+    there.  For a plain dst: (dst, src gathered)."""
     if not is_dtensor(dst):
         return dst, full(src)
     if any(p.is_shard(2) for p in dst.placements):
         raise NotImplementedError("an in-place write into a cache sharded along the "
-                                  "sequence (sequence_parallel_decode): decode such a "
-                                  "cache through serving.sp_decode.sp_flash_decode")
-    sharding = NamedSharding(dst.device_mesh, tuple(dst.placements))
+                                  "sequence (sequence_parallel_decode): write it with "
+                                  "write_prefix or write_at")
+    return dst.to_local(), _local_as(src, dst, tuple(dst.placements))
+
+
+def _local_as(src: torch.Tensor, dst: torch.Tensor, placements_: tuple) -> torch.Tensor:
+    """This rank's shard of src laid out on dst's mesh as ``placements_``."""
+    sharding = NamedSharding(dst.device_mesh, placements_)
     src = (src.redistribute(sharding.mesh, sharding.effective) if is_dtensor(src)
            else distribute(src, sharding))
-    return dst.to_local(), src.to_local()
+    return src.to_local()
+
+
+def _split_along(src: torch.Tensor, dst: torch.Tensor, dim: int):
+    """For a DTensor dst split along ``dim``: (dst's local shard, the offset
+    of its slice of ``dim``, src laid out as dst but whole along ``dim``,
+    local); None when dst is not split along ``dim``."""
+    if not is_dtensor(dst) or not any(p.is_shard(dim) for p in dst.placements):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, coord = dst.device_mesh, dst.device_mesh.get_coordinate()
+    size, offset = dst.shape[dim], 0
+    for i, p in enumerate(dst.placements):     # split major to minor, mesh dim by mesh dim
+        if p.is_shard(dim):
+            if type(p) is not Shard or size % mesh.size(i):
+                raise ValueError(f"dim {dim} of {tuple(dst.shape)} is not split evenly "
+                                 f"by {dst.placements}")
+            size //= mesh.size(i)
+            offset += coord[i] * size
+    whole = tuple(Replicate() if p.is_shard(dim) else p for p in dst.placements)
+    return dst.to_local(), offset, _local_as(src, dst, whole)
+
+
+def write_prefix(dst: torch.Tensor, dim: int, src: torch.Tensor) -> None:
+    """dst's first ``src.shape[dim]`` entries along ``dim`` = src, in place
+    on each rank's own shard (a prefill's cache write).  Where dst is split
+    along ``dim``, each rank writes the part of the prefix inside its own
+    slice; the prefix length is static, so no rank waits on another."""
+    n = src.shape[dim]
+    split = _split_along(src, dst, dim)
+    if split is None:
+        dst, src = shard_like(src, dst)
+        dst.narrow(dim, 0, n).copy_(src)
+        return
+    local, start, src = split
+    count = min(local.shape[dim], n - start)
+    if count > 0:
+        local.narrow(dim, 0, count).copy_(src.narrow(dim, start, count))
+
+
+def write_at(dst: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.index_copy_(dim, index, src)`` in place on each rank's own shard
+    (a decode step's cache write at the position held in ``index``, a
+    one-element tensor on the device).  Where dst is split along ``dim``
+    the position picks the rank: every rank writes either src or the entry
+    it already holds at the position clamped into its slice, decided on
+    the device (nothing syncs with the host)."""
+    split = _split_along(src, dst, dim)
+    if split is None:
+        dst, src = shard_like(src, dst)
+        dst.index_copy_(dim, index, src)
+        return
+    if index.numel() != 1:
+        raise ValueError(f"a write into a tensor split along dim {dim} takes one "
+                         f"position, got {index.numel()}")
+    local, start, src = split
+    rel = index - start
+    inside = (rel >= 0) & (rel < local.shape[dim])
+    rel = rel.clamp(0, local.shape[dim] - 1)
+    keep = local.index_select(dim, rel)
+    local.index_copy_(dim, rel, torch.where(inside, src, keep))
 
 
 @torch.no_grad()

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from .flash_attention import flash_attention, flash_attention_plain
 from .rasa_gemm import GemmBlocks, default_blocks, rasa_gemm, rasa_gemm_plain
 
@@ -44,10 +46,12 @@ class _ForwardOnly(torch.autograd.Function):
     "(Tensor a, Tensor b, Tensor? c, str schedule, int bk, ScalarType out_dtype) -> Tensor"))
 def _rasa_mm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor], schedule: str,
              bk: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """The RASA GEMM as one operator, for DTensor operands: each rank runs
-    the CUDA kernel (its plain version for CPU tensors) on its local shards
-    (``_rasa_mm_sharding``).  Plain tensors skip the operator's dispatch
-    (``rasa_matmul``)."""
+    """The RASA GEMM as one operator, for DTensor, fake and meta operands:
+    each rank runs the CUDA kernel (its plain version for CPU tensors) on
+    its local shards (``_rasa_mm_sharding``); a fake or meta operand takes
+    the fake implementation, which allocates nothing, and counts 2 M K N
+    under ``FlopCounterMode`` (``_rasa_mm_flops``).  Plain tensors skip
+    the operator's dispatch (``rasa_matmul``)."""
     fn = rasa_gemm_plain if a.device.type == "cpu" else rasa_gemm
     return fn(a, b, c, schedule=schedule, blocks=GemmBlocks(bk=bk), out_dtype=out_dtype)
 
@@ -63,6 +67,13 @@ def _forward_only(ctx, g):
 
 # forward-only under DTensor too (``_ForwardOnly``)
 _rasa_mm.register_autograd(_forward_only)
+
+
+@register_flop_formula(torch.ops.repro_torch.rasa_mm)
+def _rasa_mm_flops(a_shape, b_shape, *args, **kwargs) -> int:
+    """2 M K N, as ``FlopCounterMode`` counts ``aten.mm`` (the summand C's
+    adds are not counted, as ``addmm``'s are not)."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
 
 
 def _mm_strategies(c_given: bool, batch: bool = False) -> list:
@@ -107,21 +118,28 @@ def _register_sharding() -> None:
 
 
 if torch.distributed.is_available():
-    from torch.distributed.tensor import DTensor as _DTensor
     _register_sharding()
-else:
-    _DTensor = ()
+
+#: the types of operand that call the kernel (or its plain version) directly
+_DIRECT = (torch.Tensor, torch.nn.Parameter)
+
+
+def _direct(t: torch.Tensor | None) -> bool:
+    """A plain tensor on a device that computes (not a DTensor, a fake
+    tensor or a meta tensor), or no tensor."""
+    return t is None or (type(t) in _DIRECT and not t.is_meta)
 
 
 def rasa_matmul(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
                 *, schedule: str = "wls", blocks: GemmBlocks | None = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """C (+)= A @ B with the RASA schedule, any 2D shapes (DTensors: each
-    rank on its shards, the k-chunk that of the full shapes).
+    rank on its shards, the k-chunk that of the full shapes; fake and meta
+    tensors: the operator's fake implementation).
     Forward-only: a backward through the result raises (``FORWARD_ONLY``).
     Plain tensors call the kernel directly, without the operator's
     dispatch, whose host time an eager decode step would pay ~200 times."""
-    if isinstance(a, _DTensor) or isinstance(b, _DTensor) or isinstance(c, _DTensor):
+    if not (_direct(a) and _direct(b) and _direct(c)):
         blocks = blocks or default_blocks(a.shape[0], a.shape[1], b.shape[1])
         return _rasa_mm(a, b, c, schedule, blocks.bk, out_dtype)
     fn = rasa_gemm_plain if a.device.type == "cpu" else rasa_gemm

@@ -26,13 +26,26 @@ Model = Transformer | SSMLanguageModel
 def build_model(cfg: RunConfig, device="cuda", seed: int = 0) -> Model:
     """The model of ``cfg`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    transformer.check_family(cfg.model, (*transformer.FAMILIES, *ssm_lm.SSM_FAMILIES))
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    return model_of(cfg, init_params(cfg, gen, device))
+
+
+def init_params(cfg: RunConfig, gen: torch.Generator, device) -> dict:
+    """The parameters of ``cfg``'s model family, drawn from ``gen`` on
+    ``device`` ("meta" draws nothing and allocates nothing)."""
+    transformer.check_family(cfg.model, (*transformer.FAMILIES, *ssm_lm.SSM_FAMILIES))
+    family = ssm_lm if cfg.model.family in ssm_lm.SSM_FAMILIES else transformer
+    return family.init_params(cfg.model, gen, device)
+
+
+def model_of(cfg: RunConfig, params: dict) -> Model:
+    """The model class of ``cfg``'s family around ``params`` (of
+    ``init_params``)."""
     if cfg.model.family in ssm_lm.SSM_FAMILIES:
-        return SSMLanguageModel(cfg, ssm_lm.init_params(cfg.model, gen, device))
-    return Transformer(cfg, transformer.init_params(cfg.model, gen, device))
+        return SSMLanguageModel(cfg, params)
+    return Transformer(cfg, params)
 
 
-__all__ = ["build_model", "params_from_jax", "resolve_device", "Model",
-           "Transformer", "DecodeState", "SSMLanguageModel", "HybridState"]
+__all__ = ["build_model", "init_params", "model_of", "params_from_jax", "resolve_device",
+           "Model", "Transformer", "DecodeState", "SSMLanguageModel", "HybridState"]

@@ -9,12 +9,16 @@ are the JAX package's.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from ..config import EngineConfig, ModelConfig
-from ..distributed.sharding import unshard_dim
+from ..distributed.sharding import is_dtensor, map_shards, reshape, unshard_dim
 from ..kernels import GemmBlocks, rasa_matmul
+from ..kernels.ops import _mm_strategies
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, engine: EngineConfig | None = None,
@@ -24,13 +28,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor, engine: EngineConfig | None = None,
     ``pallas_rasa`` engine is forward-only, as in the reference."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = reshape(x, -1, x.shape[-1])
     if engine is not None and engine.kind == "pallas_rasa":
         blocks = GemmBlocks(engine.block_m, engine.block_k, engine.block_n)
         out = rasa_matmul(x2, w, schedule=engine.schedule, blocks=blocks).to(out_dtype)
     else:
         out = dot_f32(torch.mm, x2, w, out_dtype)
-    return out.reshape(*lead, w.shape[-1])
+    return reshape(out, *lead, w.shape[-1])
 
 
 def _product(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,10 +69,46 @@ def _grad_product(op, a: torch.Tensor, b: torch.Tensor,
     k = a.shape[-1]
     if not (a.is_cuda and a.dtype == b.dtype == torch.bfloat16) or k <= piece:
         return _product(op, a, b)
+    if is_dtensor(a) or is_dtensor(b):
+        return torch.ops.repro_torch.product_in_pieces(a, b, piece)
+    return _in_pieces(a, b, piece)
+
+
+def _in_pieces(a: torch.Tensor, b: torch.Tensor, piece: int) -> torch.Tensor:
+    """``_product`` of a [.., M, K] and b [.., K, N] (mm, or bmm for a
+    leading batch) summed over pieces of ``piece`` along K, in fp32."""
+    op = torch.bmm if a.dim() == 3 else torch.mm
     out = _product(op, a[..., :piece], b[..., :piece, :])
-    for k0 in range(piece, k, piece):
+    for k0 in range(piece, a.shape[-1], piece):
         out += _product(op, a[..., k0:k0 + piece], b[..., k0:k0 + piece, :])
     return out
+
+
+@torch.library.custom_op("repro_torch::product_in_pieces", mutates_args=())
+def _product_in_pieces(a: torch.Tensor, b: torch.Tensor, piece: int) -> torch.Tensor:
+    """``_in_pieces`` as one operator, for DTensor operands: each rank sums
+    the pieces of its own shards (``_pieces_sharding``; a contraction split
+    over ranks then adds their partial sums), where slicing a DTensor along
+    a split contraction would gather it for every piece."""
+    return _in_pieces(a, b, piece)
+
+
+@_product_in_pieces.register_fake
+def _(a, b, piece):
+    return a.new_empty((*a.shape[:-1], b.shape[-1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.product_in_pieces)
+def _pieces_flops(a_shape, b_shape, *args, **kwargs) -> int:
+    return 2 * math.prod(a_shape) * b_shape[-1]
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.product_in_pieces.default)
+    def _pieces_sharding(a, b, piece):
+        return [(o, [*i[:2], None]) for o, i in _mm_strategies(False, batch=a.ndim == 3)]
 
 
 class _DotF32(torch.autograd.Function):
@@ -156,15 +196,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
              ignore_index: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of -log p(label) over valid labels in fp32, their count)."""
-    # a DTensor's partial sums are reduced and its vocab gathered first:
-    # DTensor's rule for a gather along a split or partial dim fails on the
-    # CE's index shapes
+    # a DTensor's partial sums are reduced and its vocab gathered first, and
+    # each rank takes its own rows (DTensor's rule for the gather fails on a
+    # split vocab, and its gather's backward makes zeros of the whole batch)
     logits = unshard_dim(logits.float(), -1)
+    valid = labels != ignore_index
+    nll = map_shards(lambda lg, lb: _nll_rows(lg, lb, ignore_index), (logits, labels),
+                     ((0, None), (0, None)), (0, None))
+    return nll.sum(), valid.sum(dtype=torch.int32)
+
+
+def _nll_rows(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """-log p(label) at each position, 0 where the label is ignored."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, safe[..., None])[..., 0]
-    return ((logz - ll) * valid).sum(), valid.sum(dtype=torch.int32)
+    return (logz - ll) * valid
 
 
 def chunked_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
@@ -185,10 +233,14 @@ def chunked_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the CE chunk {chunk}")
+    # the head gathered over its FSDP split (d_model) once, as FSDP does: a
+    # product against the split head could move the batch instead, and the
+    # logits would then hold every row of the batch on every rank
+    head_w = unshard_dim(head_w, 0)
 
     def chunk_loss(x_c, l_c):
-        logits = dot_f32(torch.mm, x_c.reshape(-1, x_c.shape[-1]), head_w)
-        logits = logits.reshape(*x_c.shape[:2], -1)
+        logits = dot_f32(torch.mm, reshape(x_c, -1, x_c.shape[-1]), head_w)
+        logits = reshape(logits, *x_c.shape[:2], -1)
         if logits_fn is not None:
             logits = logits_fn(logits)
         return _nll_sum(logits, l_c, ignore_index)

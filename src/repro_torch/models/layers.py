@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import EngineConfig, ModelConfig
-from ..distributed.sharding import constrain, is_dtensor, shard_like
+from ..distributed.sharding import (constrain, is_dtensor, map_shards, reshape, write_at,
+                                    write_prefix)
 from .common import dot_f32, matmul
 
 # --------------------------------------------------------------------- norms
@@ -156,9 +157,9 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     hd = cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
 
-    q = matmul(x, p["wq"], engine).reshape(b, s, h, hd)
-    k = matmul(x, p["wk"], engine).reshape(b, s, hkv, hd)
-    v = matmul(x, p["wv"], engine).reshape(b, s, hkv, hd)
+    q = reshape(matmul(x, p["wq"], engine), b, s, h, hd)
+    k = reshape(matmul(x, p["wk"], engine), b, s, hkv, hd)
+    v = reshape(matmul(x, p["wv"], engine), b, s, hkv, hd)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
@@ -175,19 +176,15 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if cache is None or s > 1:
         if cache is not None:
             # in-place: the prompt's k/v fill the cache from position 0
-            if is_dtensor(cache.k) or is_dtensor(k):
-                for dst, new in ((cache.k, k), (cache.v, v)):
-                    dst, new = shard_like(new.to(dst.dtype), dst)
-                    dst[:, :, :s] = new
-            else:
-                cache.k[:, :, :s] = k.to(cache.k.dtype)
-                cache.v[:, :, :s] = v.to(cache.v.dtype)
+            for dst, new in ((cache.k, k), (cache.v, v)):
+                write_prefix(dst, 2, new.to(dst.dtype))
             cache.length.fill_(s)
-        out = chunked_causal_attention(q, gqa_expand(k, h), gqa_expand(v, h),
-                                       scale=scale,
-                                       q_chunk=engine.attn_q_chunk,
-                                       kv_chunk=engine.attn_kv_chunk,
-                                       logit_softcap=cfg.logit_softcap)
+        # each (batch, head) on its own: on each rank's shards under a mesh
+        out = map_shards(
+            lambda q_, k_, v_: chunked_causal_attention(
+                q_, k_, v_, scale=scale, q_chunk=engine.attn_q_chunk,
+                kv_chunk=engine.attn_kv_chunk, logit_softcap=cfg.logit_softcap),
+            (q, gqa_expand(k, h), gqa_expand(v, h)), ((0, 1),) * 3, (0, 1))
     else:
         # single-token decode; in-place append at the cache's length (read
         # on the device: no host sync), then grouped-query attention without
@@ -199,25 +196,31 @@ def attention_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         steps = torch.arange(s, device=x.device)
         write = torch.clamp(cache.length, max=smax - s) + steps
         for dst, new in ((ck, k), (cv, v)):
-            dst, new = shard_like(new.to(dst.dtype), dst)
-            dst.index_copy_(2, write, new)
+            write_at(dst, 2, write, new.to(dst.dtype))
         pos = cache.length + steps
         cache.length.add_(s)
         group = h // hkv
-        qg = q.reshape(b, hkv, group * s, hd).float() * scale
-        logits = torch.einsum("bhqd,bhkd->bhqk", qg, ck.float())
-        if cfg.logit_softcap:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         # queries are (group-major) the s new positions repeated per group
         qpos = pos.repeat(group)
-        mask = (torch.arange(smax, device=x.device)[None, None, None, :]
-                <= qpos[None, None, :, None])
-        logits = torch.where(mask, logits, -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, cv.float()).to(x.dtype)
-        out = out.reshape(b, h, s, hd)
 
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+        def attend(qg, ck, cv):
+            logits = torch.einsum("bhqd,bhkd->bhqk", qg, ck.float())
+            if cfg.logit_softcap:
+                logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+            mask = (torch.arange(smax, device=qg.device)[None, None, None, :]
+                    <= qpos[None, None, :, None])
+            logits = torch.where(mask, logits, -1e30)
+            probs = torch.softmax(logits, dim=-1)
+            return torch.einsum("bhqk,bhkd->bhqd", probs, cv.float()).to(x.dtype)
+
+        qg = reshape(q, b, hkv, group * s, hd).float() * scale
+        if is_dtensor(ck) and any(p.is_shard() and p.dim not in (0, 1) for p in ck.placements):
+            out = attend(qg, ck, cv)        # a cache split along the sequence or head_dim
+        else:                               # each (batch, kv head) on its own
+            out = map_shards(attend, (qg, ck, cv), ((0, 1),) * 3, (0, 1))
+        out = reshape(out, b, h, s, hd)
+
+    out = reshape(out.transpose(1, 2), b, s, h * hd)
     return matmul(out, p["wo"], engine), cache
 
 
@@ -231,9 +234,9 @@ def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         if "w_gate_up" in p:
             # fused gate+up: one GEMM, x read once (WL-skip analogue)
             w = p["w_gate_up"]
-            gu = dot_f32(torch.mm, x.reshape(-1, w.shape[0]), w.reshape(w.shape[0], -1),
+            gu = dot_f32(torch.mm, reshape(x, -1, w.shape[0]), w.reshape(w.shape[0], -1),
                          x.dtype)
-            gu = gu.reshape(*x.shape[:2], *w.shape[1:])
+            gu = reshape(gu, *x.shape[:2], *w.shape[1:])
             g, u = gu[:, :, 0], gu[:, :, 1]
         else:
             g = matmul(x, p["w_gate"], engine)

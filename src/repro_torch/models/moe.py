@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, map_shards, reshape
 from .common import dot_f32, matmul
 
 
@@ -60,7 +60,7 @@ def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     if "experts_w_gate_up" in p:
         w = p["experts_w_gate_up"]                       # [E, D, 2, Fe]
         gu = dot_f32(torch.bmm, buf, w.reshape(w.shape[0], w.shape[1], -1), dtype)
-        gu = gu.reshape(*gu.shape[:2], 2, -1)
+        gu = reshape(gu, *gu.shape[:2], 2, -1)
         gate, up = gu[:, :, 0], gu[:, :, 1]
     else:
         gate = dot_f32(torch.bmm, buf, p["experts_w_gate"], dtype)
@@ -69,21 +69,14 @@ def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     return dot_f32(torch.bmm, inner, p["experts_w_down"], dtype)
 
 
-def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Routing]:
-    """x: [B, S, D] -> (y [B, S, D], the routing).  No product of this
-    block goes through the RASA engine."""
-    moe = cfg.moe
-    b, s, d = x.shape
-    t = b * s
-    e, k = moe.n_experts, moe.top_k
-    g = _group_count(t, moe.dispatch_groups)
-    tg = t // g
-    cap = capacity(tg, cfg)
-    dev = x.device
-
-    xf = x.reshape(g, tg, d)
-    logits = matmul(x.reshape(t, d), p["router"].to(x.dtype),
-                    out_dtype=torch.float32).reshape(g, tg, e)
+def _dispatch(xf: torch.Tensor, logits: torch.Tensor, k: int, cap: int):
+    """Each group's routing and dispatch into its experts' slots: xf [G,
+    Tg, D], the router's logits [G, Tg, E] -> (buf [G, E, cap + 1, D], the
+    probabilities, the top-k experts, and of the expert-sorted entries
+    [G, Tg*k]: kept, expert, token, slot and weight)."""
+    g, tg, d = xf.shape
+    e = logits.shape[-1]
+    dev = xf.device
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[..., :k], top_i[..., :k]                   # [G, Tg, k]
@@ -103,23 +96,54 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Rou
     # kept entries have distinct (expert, slot) pairs; the dropped ones go to
     # a spare slot that is sliced off
     gi = torch.arange(g, device=dev)[:, None]
-    buf = torch.zeros((g, e, cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((g, e, cap + 1, d), dtype=xf.dtype, device=dev)
     buf[gi, se, torch.where(keep, slot, cap)] = xf[gi, st]
-    buf_e = constrain(buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d), "ecd")
-    out_buf = expert_ffn(p, buf_e).reshape(e, g, cap, d).transpose(0, 1)
+    return buf, probs, top_i, keep, se, st, slot, top_w.reshape(g, tg * k).gather(-1, order)
 
-    # ---- combine: each token's k contributions in ascending expert id ----
+
+def _combine(out_buf: torch.Tensor, keep, se, st, slot, w, k: int) -> torch.Tensor:
+    """Each token's k contributions (out_buf [G, E, cap, D] at its entries'
+    slots, times their weights) added in ascending expert id -> [G, Tg, D]."""
+    g, tk = se.shape
+    d = out_buf.shape[-1]
+    gi = torch.arange(g, device=out_buf.device)[:, None]
     slot_c = torch.where(keep, slot, 0)
-    contrib = out_buf[gi, se, slot_c] * (top_w.reshape(g, tg * k).gather(-1, order)
-                                         * keep).to(x.dtype)[..., None]
+    contrib = out_buf[gi, se, slot_c] * (w * keep).to(out_buf.dtype)[..., None]
     # back from the expert-sorted order to (token, expert id ascending): a
     # token's entries are already in ascending expert id within the sort
     by_token = torch.argsort(st, dim=-1, stable=True)
-    contrib = contrib.gather(1, by_token[..., None].expand(g, tg * k, d)).reshape(g, tg, k, d)
+    contrib = contrib.gather(1, by_token[..., None].expand(g, tk, d)).reshape(g, tk // k, k, d)
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
-    return y.reshape(b, s, d), Routing(probs, top_i, keep)
+    return y
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, Routing]:
+    """x: [B, S, D] -> (y [B, S, D], the routing).  No product of this
+    block goes through the RASA engine.  The routing, dispatch and combine
+    of each group are its own (on each rank's groups under a mesh); the
+    experts' products run on their slots of every group."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = moe.n_experts, moe.top_k
+    g = _group_count(t, moe.dispatch_groups)
+    tg = t // g
+    cap = capacity(tg, cfg)
+
+    xf = reshape(x, g, tg, d)
+    logits = reshape(matmul(reshape(x, t, d), p["router"].to(x.dtype),
+                            out_dtype=torch.float32), g, tg, e)
+    group = (0, None)
+    buf, probs, top_i, keep, se, st, slot, w = map_shards(
+        lambda xf_, logits_: _dispatch(xf_, logits_, k, cap), (xf, logits), (group,) * 2,
+        (group,) * 8)
+    buf_e = constrain(reshape(buf[:, :, :cap].transpose(0, 1), e, g * cap, d), "ecd")
+    out_buf = reshape(expert_ffn(p, buf_e), e, g, cap, d).transpose(0, 1)
+    y = map_shards(lambda *a: _combine(*a, k), (out_buf, keep, se, st, slot, w),
+                   (group,) * 6, group)
+    return reshape(y, b, s, d), Routing(probs, top_i, keep)
 
 
 def load_balance_loss(routing: Routing, cfg: ModelConfig) -> torch.Tensor:
@@ -130,7 +154,7 @@ def load_balance_loss(routing: Routing, cfg: ModelConfig) -> torch.Tensor:
     moe = cfg.moe
     e = moe.n_experts
     top_i = routing.top_i
-    counts = (top_i.reshape(-1, 1) == torch.arange(e, device=top_i.device)).sum(0)
+    counts = (reshape(top_i, -1, 1) == torch.arange(e, device=top_i.device)).sum(0)
     frac_routed = counts.float() / top_i.numel()
     return e * torch.sum(frac_routed * routing.probs.mean((0, 1))) * moe.aux_loss_weight
 

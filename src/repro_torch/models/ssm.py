@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import EngineConfig, ModelConfig
+from ..distributed.sharding import map_shards, reshape
 from .common import matmul
 from .layers import rms_norm
 
@@ -117,6 +118,20 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1), state
 
 
+def _ssm_step(Bx: torch.Tensor, Cx: torch.Tensor, x0: torch.Tensor, dt0: torch.Tensor,
+              A: torch.Tensor, ssm: torch.Tensor, dtype: torch.dtype):
+    """One token's recurrent update, in f32 as the reference's mixed
+    einsums: Bx, Cx [B, G, N], x0 [B, H, P], dt0 [B, H], A [H], ssm [B, H,
+    P, N] -> (y [B, H, P] in ``dtype``, the new state)."""
+    rep = x0.shape[1] // Bx.shape[1]
+    Bh = torch.repeat_interleave(Bx, rep, dim=1).float()
+    Ch = torch.repeat_interleave(Cx, rep, dim=1)
+    st = (ssm * torch.exp(dt0 * A[None, :])[:, :, None, None]
+          + torch.einsum("bhn,bhp,bh->bhpn", Bh, x0.float(), dt0))
+    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), st.to(dtype).float())
+    return y.to(dtype), st
+
+
 def mamba2_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                  engine: EngineConfig, state: SSMState | None = None
                  ) -> tuple[torch.Tensor, SSMState | None]:
@@ -137,27 +152,29 @@ def mamba2_block(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfi
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    None if state is None else state.conv)
     x_in, Bx, Cx = torch.split(xbc, [d_inner, g * nst, g * nst], dim=-1)
-    xh = x_in.reshape(b, s, n_heads, hdim)
+    xh = reshape(x_in, b, s, n_heads, hdim)
+    # each (batch, head) on its own: on each rank's shards under a mesh; a
+    # group's B and C go with its heads (heads are group-major), one group
+    # with every head
+    grp = -2 if g > 1 else None                 # the group dim of B and C
     if state is None or s > 1:
         chunk = min(s_cfg.chunk, s)
-        y, final = ssd_chunked(xh, dt, A, Bx.reshape(b, s, g, nst),
-                               Cx.reshape(b, s, g, nst), chunk,
-                               None if state is None else state.ssm)
+        y, final = map_shards(
+            lambda *a: ssd_chunked(*a[:5], chunk, a[5]),
+            (xh, dt, A, reshape(Bx, b, s, g, nst), reshape(Cx, b, s, g, nst),
+             None if state is None else state.ssm),
+            ((0, 2), (0, 2), (None, 0), (0, grp), (0, grp), (0, 1)), ((0, 2), (0, 1)))
         new_state = None if state is None else SSMState(conv=conv_state, ssm=final)
     else:
-        # s == 1: recurrent update, in f32 as the reference's mixed einsums
-        rep = n_heads // g
-        Bh = torch.repeat_interleave(Bx.reshape(b, g, nst), rep, dim=1).float()
-        Ch = torch.repeat_interleave(Cx.reshape(b, g, nst), rep, dim=1)
-        dt0 = dt[:, 0]                                                   # [B, H]
-        st = (state.ssm * torch.exp(dt0 * A[None, :])[:, :, None, None]
-              + torch.einsum("bhn,bhp,bh->bhpn", Bh, xh[:, 0].float(), dt0))
-        y = torch.einsum("bhn,bhpn->bhp", Ch.float(), st.to(x.dtype).float())
-        y = y[:, None].to(x.dtype).reshape(b, s, n_heads, hdim)
+        y, st = map_shards(
+            lambda *a: _ssm_step(*a, x.dtype),
+            (reshape(Bx, b, g, nst), reshape(Cx, b, g, nst), xh[:, 0], dt[:, 0], A, state.ssm),
+            ((0, grp), (0, grp), (0, 1), (0, 1), (None, 0), (0, 1)), ((0, 1), (0, 1)))
+        y = reshape(y[:, None], b, s, n_heads, hdim)
         new_state = SSMState(conv=conv_state, ssm=st)
 
     y = y + p["D_skip"].to(x.dtype)[None, None, :, None] * xh.to(x.dtype)
-    y = y.reshape(b, s, d_inner)
+    y = reshape(y, b, s, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["ssm_norm"], cfg.rms_eps)
     return matmul(y, p["out_proj"], engine), new_state
 

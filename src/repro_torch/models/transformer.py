@@ -32,7 +32,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import EngineConfig, ModelConfig, RunConfig
-from ..distributed.sharding import constrain, place_state
+from ..distributed.sharding import (NamedSharding, constrain, distribute, is_dtensor,
+                                    place_state, reshape, single_split)
 from .common import chunked_cross_entropy, dtype_of, embed_init, he_init, matmul
 from .layers import (KVCache, attention_block, mlp_block, rms_norm, rope_freqs,
                      rope_from_freqs)
@@ -249,6 +250,38 @@ def run_layers(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------- embedding
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[ids]`` for a DTensor table, with a backward that adds the
+    gradient's rows into a local gradient of the whole table on each rank
+    (partial sums over the mesh dims that split ids) and reduces it onto
+    the table's layout: DTensor's own rule for that scatter-add fails on
+    some torch versions.  The adds are the index backward's own
+    (``index_put_`` with accumulation, in the table's dtype)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table = (table.shape, table.dtype, table.device_mesh, tuple(table.placements))
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        (ids,) = ctx.saved_tensors
+        shape, dtype, mesh, placements = ctx.table
+        split = (tuple(ids.placements) if is_dtensor(ids)
+                 else (Replicate(),) * mesh.ndim)
+        g = g.redistribute(mesh, split) if is_dtensor(g) else distribute(
+            g, NamedSharding(mesh, split))
+        ids = ids.to_local() if is_dtensor(ids) else distribute(
+            ids, NamedSharding(mesh, split)).to_local()
+        grad = torch.zeros(shape, dtype=dtype, device=g.device).index_put_(
+            (ids,), g.to_local().to(dtype), accumulate=True)
+        partial = tuple(Partial() if p.is_shard() else Replicate() for p in split)
+        return (DTensor.from_local(grad, mesh, partial, run_check=False)
+                .redistribute(mesh, placements), None)
+
+
 def embed_tokens(model: nn.Module, tokens: torch.Tensor,
                  patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """tokens: [B, S] (audio: [B, S, n_codebooks]) -> [B, S, D].  Audio
@@ -258,11 +291,16 @@ def embed_tokens(model: nn.Module, tokens: torch.Tensor,
     frontend's output) go through ``patch_proj`` and are prepended."""
     cfg = model.model
     emb = model.embedding
+    # a lookup's sharding rule takes one mesh dim a tensor dim: a dim split
+    # over pod and data (FSDP's d_model, the batch of the tokens) keeps the
+    # data split alone
+    emb, tokens = (single_split(t) for t in (emb, tokens))
+    lookup = _Lookup.apply if is_dtensor(emb) else (lambda table, ids: table[ids])
     if cfg.family == "audio":
         offsets = torch.arange(cfg.n_codebooks, device=tokens.device) * cfg.vocab
-        x = emb[(tokens + offsets).long()].sum(dim=2)
+        x = lookup(emb, (tokens + offsets).long()).sum(dim=2)
     else:
-        x = emb[tokens.long()]
+        x = lookup(emb, tokens.long())
     if cfg.family == "vlm" and patch_embeds is not None:
         pe = matmul(patch_embeds.to(x.dtype), model.patch_proj)
         x = torch.cat([pe, x], dim=1)
@@ -292,7 +330,7 @@ def logits_from(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     head = model.embedding.T if m.tie_embeddings else model.lm_head
     logits = matmul(x, head, model.cfg.engine, out_dtype=torch.float32)
     if m.family == "audio":
-        return logits.reshape(*logits.shape[:2], m.n_codebooks, m.vocab)
+        return reshape(logits, *logits.shape[:2], m.n_codebooks, m.vocab)
     return logits
 
 
@@ -306,7 +344,7 @@ def head_loss(model: nn.Module, x: torch.Tensor,
     head = model.embedding.T if m.tie_embeddings else model.lm_head
     logits_fn = None
     if m.family == "audio":
-        logits_fn = lambda lg: lg.reshape(*lg.shape[:-1], m.n_codebooks, m.vocab)
+        logits_fn = lambda lg: reshape(lg, *lg.shape[:-1], m.n_codebooks, m.vocab)
     return chunked_cross_entropy(x, head, labels, chunk=model.cfg.engine.ce_chunk,
                                  logits_fn=logits_fn)
 

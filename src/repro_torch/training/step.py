@@ -69,7 +69,10 @@ def build_train_step(model: Model) -> Callable[[TrainState, dict], tuple[TrainSt
 
     def grads_of(params: dict, batch: dict):
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # a parameter the loss does not reach (the hybrid's shared block with
+        # no layer to follow) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(params, grads)))
 

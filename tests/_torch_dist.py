@@ -252,3 +252,51 @@ def pipeline(rank, world, params, x):
 
 if __name__ == "__main__":
     sys.exit("a module of test helpers")
+
+
+def sp_serve(rank, world):
+    """Greedy serving (f32 smoke, seed 0, batch 2, prompt 6, 3 decode steps,
+    max_seq 16) under a mesh against the unsharded session: qwen3-1.7b and
+    zamba2-2.7b with sequence_parallel_decode on (2, 1), the cache split
+    along the sequence (positions 6 and 7 on rank 0, 8 on rank 1);
+    granite-moe-3b-a800m on (1, 2).  Per arch: (meshed, unsharded, the
+    stacked k cache's placements), each with its tokens and its prefill and
+    decode logits."""
+    import dataclasses
+    import torch
+    from repro_torch.distributed import mesh_context
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import prompt_shape
+    from repro_torch.serving import ServeSession
+
+    def run(session, prompts):
+        logits = session.prefill(prompts).clone()
+        first, decode, tokens = logits, [], []
+        for _ in range(3):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tokens.append(tok)
+            logits = session.decode_step(tok).clone()
+            decode.append(logits)
+        return {"prefill": first.numpy(), "decode": torch.stack(decode).numpy(),
+                "tokens": torch.stack(tokens).numpy()}
+
+    out = {}
+    for arch, shape, sp in (("qwen3-1.7b", (2, 1), True), ("zamba2-2.7b", (2, 1), True),
+                            ("granite-moe-3b-a800m", (1, 2), False)):
+        cfg = _train_cfg(arch, "float32")
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, sequence_parallel_decode=sp))
+        gen = torch.Generator().manual_seed(1)
+        prompts = torch.randint(0, cfg.model.vocab, prompt_shape(cfg.model, 2, 6),
+                                generator=gen, dtype=torch.int32)
+        plain = run(ServeSession(build_model(cfg, device="cpu", seed=0), max_seq=16,
+                                 device="cpu"), prompts)
+        with mesh_context(_mesh(shape), cfg.parallel):
+            session = ServeSession(build_model(cfg, device="cpu", seed=0), max_seq=16,
+                                   device="cpu")
+            meshed = run(session, prompts)
+            k = session._slots[2][0].buffers[0]
+            placements = str(tuple(k.placements)) if is_dtensor(k) else "plain"
+        out[arch] = (meshed, plain, placements)
+    return out

@@ -51,7 +51,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.multicore.online, repro_torch.multicore.scheduler, "
             "repro_torch.multicore.faults, repro_torch.serving.simbatch, "
             "repro_torch.obs.attribution, repro_torch.obs.record, repro_torch.obs.timeline, "
-            "repro_torch.obs.perfetto, repro_torch.obs.render, repro_torch.configs.rasa_paper\n"
+            "repro_torch.obs.perfetto, repro_torch.obs.render, repro_torch.configs.rasa_paper, "
+            "repro_torch.launch.dryrun, repro_torch.roofline, repro_torch.roofline.analysis\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
