@@ -1,0 +1,9 @@
+"""The device's idle share over the traced requests (from the first
+prefill's first device record, after the segment's lead step, to the last
+record): 1 - (union of the device records) / (that window), in %."""
+
+from bench.metrics_common import idle_share
+
+
+def read(record):
+    return idle_share(record)
